@@ -5,11 +5,23 @@
 Phases, each of which raises on a fault (the script then exits non-zero):
 
 1. Environment: torch/CUDA versions, the card, its power limit, nvcc.
-2. Build: compile csrc/filters.cu with nvcc (ffvvc_tpu_torch/ops/_build.py).
-3. Kernels: SAO, ALF and CC-ALF at the shapes a 1080p 10-bit 4:2:0 frame
-   gives them (luma 1080x1920, chroma 540x960, CTB 32), on seeded inputs;
-   each must equal its plain PyTorch twin exactly (torch.equal).  Both
-   are timed with CUDA events (median of 20 launches).
+2. Build, all at once: csrc/filters.cu with nvcc (ffvvc_tpu_torch/ops/
+   _build.py) and the host half's eight C libraries with gcc
+   (ffvvc_tpu_torch/native/_build.py), each from the package's own sources.
+3. Kernels: SAO (three planes in one launch), luma ALF, chroma ALF (two
+   planes in one launch) and CC-ALF on seeded inputs, each held against its
+   plain PyTorch version exactly (torch.equal), at the shapes a 1080p 10-bit
+   4:2:0 frame with CTB 32 gives them (luma 1080x1920, chroma 540x960; the
+   last CTB row is partial) and at 416x240 4:2:0 with CTB 32 and CTB 128
+   (8-aligned, not tile-aligned, last CTB row partial); SAO also with
+   luma and chroma in launches of their own.  At the 1080p
+   shapes each kernel is timed on the device by replaying a CUDA graph of
+   its launches: warm (one input set, which stays in the L2) and cold
+   (cycling through input sets of over 100 MB, twice the L2), beside the
+   least time the card could take (`bound`: the larger of its bytes at the
+   memory rate and its integer operations at the rate of the busier pipe).
+   The plain version and one eager wrapper call (host overhead included)
+   are timed with CUDA events.
 4. Decode: two 4-frame 1080p10 all-intra streams with SAO, ALF, CC-ALF
    and LMCS on, the first with LMCS chroma residual scaling (its host
    recon runs in the Python golden model), the second without (the
@@ -18,10 +30,12 @@ Phases, each of which raises on a fault (the script then exits non-zero):
    of the same stream (the same decoder with device_pipeline off), every
    frame must run the fused chain and every kernel must launch.  A
    second, serial decode of each prints the time per stage.
+5. No module of the JAX package and no JAX was loaded.
 
 The last two lines of stdout are a JSON summary of the kernels and the
 contract line {"ok": true, "device": {...}}.
 """
+import concurrent.futures
 import hashlib
 import json
 import os
@@ -33,33 +47,74 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
-sys.path.insert(1, os.path.join(ROOT, "tools"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from ffvvc_tpu_torch.cabac import native as cabac_native  # noqa: E402
+from ffvvc_tpu_torch.native import _build as native_build  # noqa: E402
+from ffvvc_tpu_torch.native import (  # noqa: E402
+    alf as n_alf, deblock as n_deblock, intra as n_intra, mc as n_mc,
+    parse as n_parse, recon as n_recon, sao as n_sao)
 from ffvvc_tpu_torch.ops import _build  # noqa: E402
 from ffvvc_tpu_torch.ops import alf_device, sao_device  # noqa: E402
 from ffvvc_tpu_torch.ops import fused_device as fd  # noqa: E402
 from ffvvc_tpu_torch.ops.kernel_inputs import (  # noqa: E402
-    alf_inputs, cc_inputs, sao_inputs)
+    alf_chroma_inputs, alf_luma_inputs, cc_inputs, sao_inputs)
 
 W, H, CTB, BD, NFRAMES, QP = 1920, 1080, 32, 10, 4, 30
 SEED = 0
 # the decoded streams: label -> extra forge arguments.  With LMCS chroma
 # residual scaling on, the host half declines its native C recon
-# (ffvvc_tpu/decoder.py:529-533) and reconstructs in the Python golden
-# model; with it off the C recon runs, as on the decoder's main path.
+# (ffvvc_tpu_torch/decoder.py, native_recon_ok) and reconstructs in the
+# Python golden model; with it off the C recon runs, as on the decoder's
+# main path.
 STREAMS = {
     "lmcs-crs": {},
     "c-recon": {"ph_kw": {"ph_chroma_residual_scale_flag": 0}},
 }
 MAIN = "c-recon"        # the stream whose launch counts the summary reports
-KERNELS = {   # wrapper -> (name, TPU kernel it replaces)
+FILTERS_CU = "ffvvc_tpu_torch/csrc/filters.cu"
+KERNELS = {   # name -> (wrapper, TPU kernel it replaces)
     "sao": (sao_device.sao_apply, "ffvvc_tpu/ops/sao_device.py:59"),
-    "alf": (alf_device.alf_filter_plane, "ffvvc_tpu/ops/alf_device.py:69"),
+    "alf_luma": (alf_device.alf_filter_luma,
+                 "ffvvc_tpu/ops/alf_device.py:69"),
+    "alf_chroma": (alf_device.alf_filter_chroma,
+                   "ffvvc_tpu/ops/alf_device.py:69"),
     "cc_alf": (alf_device.cc_filter, "ffvvc_tpu/ops/alf_device.py:94"),
 }
+# Peak rates of one H100 SXM at its full 700 W (NVIDIA's data sheet): 3.35
+# TB/s of device memory; 67 TFLOP/s of float32 outside the tensor cores,
+# which is 2 operations (a multiply-add) on each of 128 lanes per SM and
+# clock.  32-bit integer instructions have two pipes per SM, each 64 lanes
+# wide (NVIDIA's CUDA C++ programming manual, arithmetic instruction
+# throughput, compute capability 9.0: 64 results per clock and SM for
+# integer add, subtract, min, max, compare and shift, and 64 for integer
+# multiply and multiply-add): the FMA pipe takes multiply-add and, since the compiler may
+# write them as one, add and subtract; the ALU pipe takes min, max, compare,
+# select, logic and shift.  A mixed stream can keep both busy, so the least
+# time of a function is that of its busier pipe at a quarter of the float32
+# figure in instructions per second.
+PEAK_BYTES_S = 3.35e12
+PEAK_PIPE_OPS_S = 67e12 / 4
+# (ALU, FMA) integer operations per output sample that the function itself
+# needs, whatever instructions a kernel spends on addresses and staging.
+# ALF: a slot is two taps of subtract (FMA), max and min (ALU), then an add
+# and a multiply-add (FMA): (4, 4); the tail is a rounding add, a shift, the
+# add to the sample and a clip: (3, 2).
+ALF_LUMA_OPS = (12 * 4 + 3, 12 * 4 + 2)
+ALF_CHROMA_OPS = (6 * 4 + 3, 6 * 4 + 2)
+# SAO by the type of the sample's CTB.  Off: none.  Band: shift, mask,
+# compare, select and the clip (ALU 6), subtract and add (FMA 2).  Edge: two
+# signs of max and min and the clip (ALU 6), two subtracts, the add of the
+# signs and the add of the offset (FMA 4).
+SAO_OPS = {0: (0, 0), 1: (6, 2), 2: (6, 4)}
+# CC-ALF: a filtered row has 7 taps of subtract and multiply-add (FMA 14);
+# every sample has a rounding add, a shift, a clip, the add to chroma and a
+# clip: (5, 2).
+CC_TAP_OPS = (0, 14)
+CC_TAIL_OPS = (5, 2)
+L2_BYTES = 50e6
 
 
 def card():
@@ -87,19 +142,35 @@ def time_ms(fn, n=20):
     return statistics.median(times)
 
 
-def device_ms(fn, n=20):
-    """Device time of one call from the profiler's CUDA activity: the sum
-    over the kernels and copies it ran, per call.  None when the
-    profiler records no device activity."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
+def graph_ms(calls, launches=256, reps=5):
+    """Device time of one launch: `calls` (each launches one kernel) are
+    captured round-robin into one CUDA graph of `launches` launches, which
+    the card then replays back to back with no host in between; the median
+    over `reps` replays of elapsed time / launches."""
+    n = -(-launches // len(calls)) * len(calls)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):       # warm-up outside the capture
+        for fn in calls:
             fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages())
-    return total_us / n / 1e3 if total_us > 0 else None
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(n):
+            calls[i % len(calls)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        graph.replay()
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1) / n)
+    return statistics.median(times)
 
 
 def environment():
@@ -116,75 +187,189 @@ def environment():
     print(f"nvcc {nvcc}: {ver.strip().splitlines()[-1]}")
 
 
-def check_kernels(dev, smi):
-    """Each kernel against its twin at 1080p10 4:2:0 shapes.  Returns the
-    per-kernel summary (launch counts are filled in by the decode)."""
+def build():
+    """Every library of the port from its own sources, all started
+    together: nvcc for the kernels, gcc for the host half."""
+    loaders = {"ffvvc_filters (nvcc)": _build.lib,
+               "vvc_cabac": cabac_native.load_lib,
+               "vvc_parse": n_parse.load_lib, "vvc_recon": n_recon.load_lib,
+               "vvc_intra": n_intra.load_lib, "vvc_mc": n_mc.load_lib,
+               "vvc_deblock": n_deblock.load_lib, "vvc_sao": n_sao.load_lib,
+               "vvc_alf": n_alf.load_lib}
+    t0 = time.monotonic()
+    with concurrent.futures.ThreadPoolExecutor(len(loaders)) as pool:
+        for fut in [pool.submit(fn) for fn in loaders.values()]:
+            fut.result()
+    secs = dict(native_build.build_seconds)
+    print(f"build: {len(loaders)} libraries in {time.monotonic() - t0:.2f} s "
+          f"into {native_build.BUILD_DIR}; seconds each: "
+          + json.dumps({k: round(v, 2) for k, v in sorted(secs.items())}))
+    print(f"build: kernels {_build.library_path()}")
+
+
+class Case:
+    """One kernel at one shape: `sets` are argument tuples that differ in
+    their sample planes only; `call`/`plain` run the wrapper and its plain
+    version on one of them and return a list of planes; `ops` are the
+    (ALU, FMA) integer operations the function needs on these inputs."""
+
+    def __init__(self, name, label, call, plain, sets, nbytes, ops):
+        self.name, self.label = name, label
+        self.call, self.plain, self.sets = call, plain, sets
+        self.nbytes, self.ops = nbytes, ops
+
+
+def _as_list(x):
+    return list(x) if isinstance(x, (list, tuple)) else [x]
+
+
+def kernel_cases(dev, h, w, ctb, cold):
+    """The four kernels at the shapes a 4:2:0 h x w picture with CTB `ctb`
+    gives them.  With `cold`, each case gets enough input sets to exceed
+    the L2 twice over; else one."""
     rng = np.random.default_rng(SEED)
-    pix_max = (1 << BD) - 1
-    half = 1 << (BD - 1)
+    pix_max, half = (1 << BD) - 1, 1 << (BD - 1)
+    hc, wc, cc = h // 2, w // 2, ctb // 2
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    cases = {k: [] for k in KERNELS}   # kernel -> [(shape, fn, ref)]
-    for plane, (h, w, cs) in (("luma", (H, W, CTB)),
-                              ("chroma", (H // 2, W // 2, CTB // 2))):
-        x, p = sao_inputs(rng, h, w, cs, cs, BD)
-        x, p = t(x), {k: t(v) for k, v in p.items()}
-        args = (x, p, cs, cs, BD - 5, pix_max)
-        cases["sao"].append((plane, lambda a=args: sao_device.sao_apply(*a),
-                             lambda a=args: sao_device.sao_apply_ref(*a)))
-        luma = plane == "luma"
-        cur, rowsel, vbsel, cf, cl, l2h, l2w = alf_inputs(rng, h, w, cs, cs,
-                                                          BD, luma)
-        cur = t(cur)
-        border = 3 if luma else 2
-        args = (cur, sao_device.pad_edge(cur, border), t(rowsel).long(),
-                t(vbsel), t(cf), t(cl), l2h, l2w,
-                alf_device.LUMA_SLOTS if luma else alf_device.CHROMA_SLOTS,
-                border, pix_max)
-        cases["alf"].append(
-            (plane, lambda a=args: alf_device.alf_filter_plane(*a),
-             lambda a=args: alf_device.alf_filter_plane_ref(*a)))
-    dst, luma, rowsel, skip, cf = cc_inputs(rng, H // 2, W // 2, CTB, 1, 1,
-                                            BD)
-    args = (t(dst), sao_device.pad_edge(t(luma), 3), t(rowsel).long(),
-            t(skip), t(cf), CTB // 2, CTB // 2, 1, half, pix_max)
-    cases["cc_alf"].append(
-        ("chroma", lambda a=args: alf_device.cc_filter(*a),
-         lambda a=args: alf_device.cc_filter_ref(*a)))
 
+    def variants(planes, sample_bytes):
+        """Plane sets: the seeded one, then shifted copies of it."""
+        n = int(2 * L2_BYTES // sample_bytes) + 1 if cold else 1
+        return [[(p + 37 * i) & pix_max if i else p for p in planes]
+                for i in range(n)]
+
+    def nbytes(*tensors):
+        return sum(x.numel() * x.element_size() for x in tensors)
+    cases = []
+    # SAO: the three planes in one launch
+    ins = [sao_inputs(rng, *s) for s in
+           ((h, w, ctb, ctb, BD), (hc, wc, cc, cc, BD), (hc, wc, cc, cc, BD))]
+    planes = [t(x) for x, _ in ins]
+    prms = [t(sao_device.pack_params(p)) for _, p in ins]
+    sizes = [(ctb, ctb), (cc, cc), (cc, cc)]
+    ops = []        # of each plane, by the SAO type of each sample's CTB
+    for (x, p), (cv, ch_) in zip(ins, sizes):
+        typ = np.repeat(np.repeat(p["typ"], cv, 0), ch_, 1)
+        typ = typ[:x.shape[0], :x.shape[1]]
+        ops.append(sum(int((typ == k).sum()) * np.array(n)
+                       for k, n in SAO_OPS.items()))
+    # (name, label, planes): the launch the chain makes, then, to read
+    # beside the times of single-plane launches, luma and chroma apart
+    for name, label, sel in (
+            ("sao", f"3 planes {h}x{w} + 2x {hc}x{wc}", slice(0, 3)),
+            ("sao/luma", f"luma {h}x{w} alone", slice(0, 1)),
+            ("sao/chroma", f"2 planes {hc}x{wc} alone", slice(1, 3))):
+        pb = nbytes(*planes[sel])
+        cases.append(Case(
+            name, label,
+            lambda s, p=prms[sel], z=sizes[sel]: sao_device.sao_apply(
+                s, p, z, BD - 5, pix_max),
+            lambda s, p=prms[sel], z=sizes[sel]: sao_device.sao_apply_ref(
+                s, p, z, BD - 5, pix_max),
+            variants(planes[sel], pb), 2 * pb + nbytes(*prms[sel]),
+            sum(ops[sel])))
+    # luma ALF
+    src, ci, ti, ctb_set, cf, cl = (t(a) for a in
+                                    alf_luma_inputs(rng, h, w, ctb, BD))
+    rest = (ci, ti, ctb_set, cf, cl, ctb, pix_max)
+    pb = nbytes(src)
+    # the kernel reads the tables of the sets in use once
+    cases.append(Case(
+        "alf_luma", f"luma {h}x{w}",
+        lambda s, r=rest: alf_device.alf_filter_luma(s[0], *r),
+        lambda s, r=rest: alf_device.alf_filter_luma_ref(s[0], *r),
+        variants([src], pb), 2 * pb + nbytes(ci, ti, ctb_set, cf, cl),
+        h * w * np.array(ALF_LUMA_OPS)))
+    # chroma ALF: both planes in one launch
+    ins = [[t(a) for a in alf_chroma_inputs(rng, hc, wc, cc, cc, BD)]
+           for _ in range(2)]
+    planes = [x[0] for x in ins]
+    rest = tuple([x[k] for x in ins] for k in (1, 2, 3)) + (cc, cc, pix_max)
+    pb = nbytes(*planes)
+    cases.append(Case(
+        "alf_chroma", f"2 planes {hc}x{wc}",
+        lambda s, r=rest: alf_device.alf_filter_chroma(s, *r),
+        lambda s, r=rest: alf_device.alf_filter_chroma_ref(s, *r),
+        variants(planes, pb),
+        2 * pb + nbytes(*[x for p in ins for x in p[1:]]),
+        2 * hc * wc * np.array(ALF_CHROMA_OPS)))
+    # CC-ALF: one chroma plane
+    dst, luma, rowsel, skip, cf = cc_inputs(rng, hc, wc, ctb, 1, 1, BD)
+    ops = wc * (int((skip == 0).sum()) * np.array(CC_TAP_OPS)
+                + hc * np.array(CC_TAIL_OPS))
+    dst, luma, skip, cf = t(dst), t(luma), t(skip), t(cf)
+    rowsel = t(rowsel).long()
+    rest = (rowsel, skip, cf, cc, cc, 1, half, pix_max)
+    pb = nbytes(dst, luma)
+    cases.append(Case(
+        "cc_alf", f"chroma {hc}x{wc}",
+        lambda s, r=rest: alf_device.cc_filter(s[0], s[1], *r),
+        lambda s, r=rest: alf_device.cc_filter_ref(s[0], s[1], *r),
+        variants([dst, luma], pb),
+        pb + nbytes(dst, rowsel, skip, cf), ops))
+    return cases
+
+
+def compare(case):
+    """The kernel against its plain version on the case's first input
+    set; returns the largest absolute difference (must be 0)."""
+    got = _as_list(case.call(case.sets[0]))
+    torch.cuda.synchronize()
+    want = _as_list(case.plain(case.sets[0]))
+    torch.cuda.synchronize()
+    err = max(int((g.int() - w_.int()).abs().max())
+              for g, w_ in zip(got, want))
+    if len(got) != len(want) or not all(
+            torch.equal(g, w_) for g, w_ in zip(got, want)):
+        raise AssertionError(f"{case.name} ({case.label}) differs from its "
+                             f"plain version: max abs err {err}")
+    return err
+
+
+def check_kernels(dev, smi):
+    """Each kernel against its plain version at every shape, and its
+    times at the 1080p10 shapes.  Returns the per-kernel summary (launch
+    counts are filled in by the decode)."""
+    for h, w, ctb in ((240, 416, 32), (240, 416, 128)):
+        for case in kernel_cases(dev, h, w, ctb, cold=False):
+            compare(case)
+            print(f"kernel {case.name} {case.label} CTB {ctb}: equal")
     summary = {}
-    for name, runs in cases.items():
-        err, ms, plain_ms, dev_ms, plain_dev_ms = 0, 0.0, 0.0, 0.0, 0.0
-        for plane, fn, ref in runs:
-            got = fn()
-            torch.cuda.synchronize()
-            want = ref()
-            torch.cuda.synchronize()
-            err = max(err, int((got - want).abs().max()))
-            if not torch.equal(got, want):
-                raise AssertionError(f"{name} ({plane}) differs from its "
-                                     f"twin: max abs err {err}")
-            k_ms, p_ms = time_ms(fn), time_ms(ref)
-            k_dev, p_dev = device_ms(fn), device_ms(ref)
-            # per 4:2:0 frame: one luma launch and two chroma launches
-            # (CC-ALF: two chroma launches)
-            n = 1 if plane == "luma" else 2
-            ms += n * k_ms
-            plain_ms += n * p_ms
-            dev_ms = None if k_dev is None or dev_ms is None \
-                else dev_ms + n * k_dev
-            plain_dev_ms = None if p_dev is None or plain_dev_ms is None \
-                else plain_dev_ms + n * p_dev
-            print(f"kernel {name} {plane} {tuple(got.shape)}: call "
-                  f"{k_ms:.4f} ms (device {k_dev} ms), twin {p_ms:.4f} ms "
-                  f"(device {p_dev} ms), equal [{smi}]")
-        summary[name] = {"name": name, "route": "cuda",
-                         "source": "ffvvc_tpu_torch/csrc/filters.cu",
-                         "replaces": KERNELS[name][1], "launches": 0,
-                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                         "device_ms": dev_ms, "plain_device_ms": plain_dev_ms,
-                         "per": "1080p10 4:2:0 frame"}
+    for case in kernel_cases(dev, H, W, CTB, cold=True):
+        err = compare(case)
+        warm = graph_ms([lambda: case.call(case.sets[0])])
+        cold = graph_ms([(lambda s=s: case.call(s)) for s in case.sets])
+        call = time_ms(lambda: case.call(case.sets[0]))
+        plain = time_ms(lambda: case.plain(case.sets[0]))
+        by_bytes = case.nbytes / PEAK_BYTES_S * 1e3
+        alu, fma = (int(n) for n in case.ops)
+        by_ops = max(alu, fma) / PEAK_PIPE_OPS_S * 1e3
+        bound = max(by_bytes, by_ops)
+        print(f"kernel {case.name} {case.label} CTB {CTB}: equal; device "
+              f"{warm:.5f} ms warm, {cold:.5f} ms cold over "
+              f"{len(case.sets)} input sets (graph replay); eager call "
+              f"{call:.4f} ms; "
+              f"plain {plain:.4f} ms; {case.nbytes / 1e6:.3f} MB = "
+              f"{by_bytes:.5f} ms = {by_bytes / warm:.1%} of warm, "
+              f"{by_bytes / cold:.1%} of cold; {alu / 1e6:.1f} M ALU and "
+              f"{fma / 1e6:.1f} M FMA-pipe integer operations = "
+              f"{by_ops:.5f} ms; bound {bound:.5f} ms = "
+              f"{bound / warm:.1%} of warm, {bound / cold:.1%} of cold "
+              f"[{smi}]")
+        if case.name not in KERNELS:
+            continue
+        summary[case.name] = {
+            "name": case.name, "route": "cuda", "source": FILTERS_CU,
+            "replaces": KERNELS[case.name][1], "launches": 0,
+            "max_abs_err": err, "ms": warm, "cold_ms": cold,
+            "call_ms": call, "plain_ms": plain, "bound_ms": bound,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes_bound_ms": by_bytes, "operations_bound_ms": by_ops,
+            "bytes": case.nbytes, "alu_operations": alu,
+            "fma_operations": fma,
+            "library_ms": None, "shape": case.label}
     return summary
 
 
@@ -195,7 +380,7 @@ def forge_stream(**extra):
     (bench.py's device-leg stream, forge_tools_stream, sets only the SPS
     flags of ALF and LMCS: no APS is sent and no slice enables them, so
     its decode never reaches ALF or CC-ALF.)"""
-    from forge import forge_inter_stream
+    from ffvvc_tpu_torch.tools.forge import forge_inter_stream
     kw = dict(slice_type=2, seed=SEED, width=W, height=H, qp=QP,
               bit_depth=BD, nframes=NFRAMES, deblock=True,
               sps_sao_enabled_flag=1, sps_alf_enabled_flag=1,
@@ -277,11 +462,18 @@ def decode(label, stream, smi):
     busy = sorted(((e.self_device_time_total, e.count, e.key)
                    for e in prof.key_averages()), reverse=True)
     busy_ms = sum(b[0] for b in busy) / 1e3
+    n_launch = sum(b[1] for b in busy)
     print(f"[{label}] serial decode: device busy {busy_ms / NFRAMES:.3f} ms "
-          f"per frame of {dt / NFRAMES * 1e3:.1f} ms wall; top device work "
-          "per frame: "
-          + "; ".join(f"{k[:60]} x{c // NFRAMES} {us / NFRAMES / 1e3:.3f} ms"
+          f"per frame of {dt / NFRAMES * 1e3:.1f} ms wall in "
+          f"{n_launch / NFRAMES:.1f} kernels and copies per frame; top "
+          "device work per frame: "
+          + "; ".join(f"{k[:60]} x{c / NFRAMES:g} {us / NFRAMES / 1e3:.3f} ms"
                       for us, c, k in busy[:8]))
+    ours = [(us, c, k) for us, c, k in busy
+            if any(s in k for s in ("sao_kernel", "alf_kernel", "cc_kernel"))]
+    print(f"[{label}] hand kernels in the serial decode, per frame: "
+          + "; ".join(f"{k[:48]} x{c / NFRAMES:g} "
+                      f"{us / NFRAMES / 1e3:.4f} ms" for us, c, k in ours))
     stages = {k: round(v / NFRAMES * 1e3, 3)
               for k, v in dec.stage_times.items()}
     stages["fused.build"] = round(fd.stats["build_s"] / NFRAMES * 1e3, 3)
@@ -299,16 +491,19 @@ def main():
     environment()
     smi = card()
     print(f"nvidia-smi: {smi}")
-    t0 = time.monotonic()
-    _build.lib()
-    print(f"build: {_build.library_path()} in "
-          f"{time.monotonic() - t0:.2f} s (nvcc {_build.build_seconds:.2f} s)")
+    build()
     summary = check_kernels(dev, smi)
     launches = {}
     for label, extra in STREAMS.items():
         launches[label] = decode(label, forge_stream(**extra), smi)
     for k in summary:
         summary[k]["launches"] = launches[MAIN][k]
+    foreign = [m for m in sys.modules
+               if m == "ffvvc_tpu" or m.startswith("ffvvc_tpu.")
+               or m.split(".")[0] in ("jax", "jaxlib")]
+    if foreign:
+        raise AssertionError(f"the run loaded {foreign}")
+    print("no module of ffvvc_tpu, jax or jaxlib was loaded")
     print(f"card: {smi}")
     print(json.dumps({"kernels": list(summary.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,10 @@
 """ffvvc_tpu_torch — the PyTorch/CUDA port of ffvvc_tpu's device half.
 
-The host half (NAL and header parsing, CABAC, the native C recon and the
-golden model) is reused from `ffvvc_tpu` by import; none of it imports JAX.
-This package replaces the device half: the fused post-recon filter chain
+The host half (NAL and header parsing, CABAC, the native C parse and recon,
+the golden model) is this package's own copy of `ffvvc_tpu`'s, file by file
+under the same names; its C libraries and the CUDA kernels are built from
+this package's sources into `ffvvc_tpu_torch/build/` at first use.  The
+device half is ported: the fused post-recon filter chain
 (`ops/fused_device.py`) runs in PyTorch, with SAO, ALF and CC-ALF as CUDA
 kernels written by hand for Hopper (`csrc/filters.cu`).
 
@@ -11,7 +13,7 @@ kernels written by hand for Hopper (`csrc/filters.cu`).
 
 There is no silent CPU path: `DecoderConfig.device` defaults to "cuda" and
 raises where CUDA is missing; the CPU tests pass device="cpu" explicitly.
-This package never imports JAX.
+This package imports neither JAX nor any module of `ffvvc_tpu`.
 """
 
 from .config import DecoderConfig  # noqa: F401

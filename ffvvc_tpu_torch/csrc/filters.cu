@@ -9,31 +9,99 @@
 // pointers, ints and the cudaStream_t to launch on, allocates nothing, does
 // not synchronise and returns cudaGetLastError() of its launch.
 //
-// All three are elementwise stencils with table lookups: one thread per
-// output sample, a 32x8 block of threads per 32x8 tile of samples.  They
-// are bound by device-memory bytes, not arithmetic: each sample costs 2-3
-// int32 reads and one write, and the tap reads of neighbouring threads hit
-// the same lines in L1/L2.  The TPU kernels took per-pixel parameter maps
-// (up to 48 [H, W] int32 planes for ALF); these kernels read the
-// parameters per CTB or per 4x4 block and expand them in registers, so no
-// per-pixel parameter plane ever exists in device memory.
+// Samples travel as 16-bit integers (the wire type of the fused chain) and
+// are widened to int32 in shared memory and registers only.  SAO and ALF
+// work on 64x16-sample tiles: a block of 16x16 threads stages its tile plus
+// a halo into shared memory once, clamping coordinates at the picture edge
+// (the values an edge-padded copy would hold, so no padded copy exists),
+// and every thread then filters four neighbouring samples of one row, which
+// it reads from the tile with 16-byte shared loads and writes with one
+// 8-byte store.  Parameters are read per CTB or per 4x4 block, never per
+// sample.  chip_smoke.py computes each kernel's bound and PERF.md has the
+// times.  The least time of SAO and CC-ALF is that of their bytes (2 in, 2
+// out per sample), of luma and chroma ALF that of their integer operations
+// (a tap pair is subtract, clip, subtract, clip, add, multiply-add: about
+// 100 a luma sample, half on each integer pipe).  None runs at its bound:
+// measured on an H100, the time of each is set by the instructions it
+// executes (address arithmetic, staging and SAO's divergent band and edge
+// paths included) and, for ALF, by its shared-memory reads, not by device
+// memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kBlockX = 32;
-constexpr int kBlockY = 8;
+constexpr int kTileW = 64;   // samples per tile row
+constexpr int kTileH = 16;   // tile rows = threads along y
+constexpr int kLane = 4;     // samples per thread along x
+constexpr int kThreadsX = kTileW / kLane;
+// column halo of the shared tile: 4 (not the 3 the widest filter needs) so
+// that a thread's 16-byte shared loads stay aligned
+constexpr int kPadX = 4;
+constexpr int kPitch = kTileW + 2 * kPadX;
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return min(max(v, lo), hi);
 }
 
-__device__ __forceinline__ int sgn(int v) { return (v > 0) - (v < 0); }
+__host__ __device__ __forceinline__ int cdiv(int a, int b) {
+  return (a + b - 1) / b;
+}
 
-dim3 grid_for(int H, int W) {
-  return dim3((W + kBlockX - 1) / kBlockX, (H + kBlockY - 1) / kBlockY);
+// Stage rows [y0 - HY, y0 + kTileH + HY) x columns [x0 - kPadX,
+// x0 + kTileW + kPadX) of a 16-bit plane into `tile` (int32, kPitch words a
+// row), coordinates clamped to the picture: the samples
+// jnp.pad(mode="edge") supplies.  A work item is four neighbouring samples:
+// one 8-byte load where all four lie inside the picture (x0 and the
+// picture's width are multiples of 4, so the address is aligned), clamped
+// 2-byte loads at the left and right edge; one 16-byte shared store.
+template <int HY>
+__device__ __forceinline__ void stage_tile(const short* __restrict__ src,
+                                           int H, int W, int x0, int y0,
+                                           int* tile) {
+  const int tid = threadIdx.y * kThreadsX + threadIdx.x;
+  constexpr int groups = kPitch / 4;
+  constexpr int n = (kTileH + 2 * HY) * groups;
+  for (int i = tid; i < n; i += kThreadsX * kTileH) {
+    const int r = i / groups, g = i - r * groups;
+    const short* row = src + (int64_t)clampi(y0 - HY + r, 0, H - 1) * W;
+    const int gx = x0 - kPadX + 4 * g;
+    int4 v;
+    if (gx >= 0 && gx + 3 < W) {
+      const uint2 q = *reinterpret_cast<const uint2*>(row + gx);
+      v = make_int4((short)(q.x & 0xffff), (int)q.x >> 16,
+                    (short)(q.y & 0xffff), (int)q.y >> 16);
+    } else {
+      v = make_int4(row[clampi(gx, 0, W - 1)], row[clampi(gx + 1, 0, W - 1)],
+                    row[clampi(gx + 2, 0, W - 1)],
+                    row[clampi(gx + 3, 0, W - 1)]);
+    }
+    *reinterpret_cast<int4*>(tile + r * kPitch + 4 * g) = v;
+  }
+}
+
+// w[0..11] = the 12 tile words from column 4 * threadIdx.x of a tile row:
+// w[4 + k + dx] is the sample at offset dx from the thread's k-th sample.
+__device__ __forceinline__ void ld12(const int* row, int (&w)[12]) {
+  const int4* p = reinterpret_cast<const int4*>(row);
+  const int4 a = p[0], b = p[1], c = p[2];
+  w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
+  w[4] = b.x; w[5] = b.y; w[6] = b.z; w[7] = b.w;
+  w[8] = c.x; w[9] = c.y; w[10] = c.z; w[11] = c.w;
+}
+
+// only w[4..7]: the thread's own four columns
+__device__ __forceinline__ void ld4(const int* row, int (&w)[12]) {
+  const int4 b = reinterpret_cast<const int4*>(row)[1];
+  w[4] = b.x; w[5] = b.y; w[6] = b.z; w[7] = b.w;
+}
+
+__device__ __forceinline__ void store4(short* dst, const int (&o)[kLane]) {
+  uint2 v;
+  v.x = (uint32_t)(o[0] & 0xffff) | ((uint32_t)o[1] << 16);
+  v.y = (uint32_t)(o[2] & 0xffff) | ((uint32_t)o[3] << 16);
+  *reinterpret_cast<uint2*>(dst) = v;
 }
 
 // ---------------------------------------------------------------------------
@@ -44,128 +112,296 @@ dim3 grid_for(int H, int W) {
 //   0 typ, 1 m1 (band position or EO class), 2..6 offs[0..4],
 //   7 kl, 8 kr, 9 kt, 10 kb, 11 ax, 12 bx.
 // The TPU version expands these to nine [H, W] maps and an edge-padded
-// copy of the plane; here each thread finds its CTB from
-// (y >> log2_cs_v, x >> log2_cs_h), builds its keep flag from the frame
-// border descriptors, and clamps neighbour coordinates at the frame edge
-// (the same values jnp.pad(mode="edge") supplies).
+// int32 copy of the plane.  Here all planes of a picture go through one
+// launch (a block finds its plane from its index); a block copies the
+// parameters of the at most four CTBs its tile touches into shared memory,
+// each thread builds its keep flags from the frame border descriptors, and
+// the edge classes read their two neighbours from the shared tile.
 // ---------------------------------------------------------------------------
 
 constexpr int kSaoBand = 1;
 constexpr int kSaoEdge = 2;
+constexpr int kSaoRows = 13;
+constexpr int kMaxCtbCols = 4;   // kTileW / 16: the narrowest CTB is 16
 
-__global__ void sao_kernel(const int* __restrict__ src,
-                           int* __restrict__ dst, int H, int W,
-                           const int* __restrict__ prm, int ch, int cw,
-                           int log2_cs_v, int log2_cs_h, int shift,
-                           int pix_max) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= W || y >= H) return;
-  const int nctb = ch * cw;
-  const int ci = (y >> log2_cs_v) * cw + (x >> log2_cs_h);
-  const int cen = src[y * W + x];
-  const int typ = prm[ci];
-  const int m1 = prm[nctb + ci];
-  int delta = 0;
-  if (typ == kSaoBand) {
-    const int rel = ((cen >> shift) - m1) & 31;
-    if (rel < 4) delta = prm[(2 + rel) * nctb + ci];
-  } else if (typ == kSaoEdge) {
-    // neighbours a, b of the EO class (0: horizontal, 1: vertical,
-    // 2: 135 degrees, 3: 45 degrees)
-    int ax_ = 0, ay = 0;
-    if (m1 == 0) {
-      ax_ = -1;
-    } else if (m1 == 1) {
-      ay = -1;
-    } else if (m1 == 2) {
-      ax_ = -1; ay = -1;
-    } else {
-      ax_ = 1; ay = -1;
-    }
-    const int ya = clampi(y + ay, 0, H - 1), xa = clampi(x + ax_, 0, W - 1);
-    const int yb = clampi(y - ay, 0, H - 1), xb = clampi(x - ax_, 0, W - 1);
-    const int d = 2 + sgn(cen - src[ya * W + xa]) + sgn(cen - src[yb * W + xb]);
-    delta = prm[(2 + d) * nctb + ci];
+struct SaoPlane {
+  const short* src;
+  short* dst;
+  const int* prm;
+  int H, W, ch, cw, log2_cs_v, log2_cs_h;
+  // tiles in all and across, and floor(2^32 / tiles_x) + 1: the launcher
+  // fills them in so that no thread divides
+  int tiles, tiles_x;
+  unsigned inv_tiles_x;
+};
+
+struct SaoArgs {
+  SaoPlane p[3];
+  int n, shift, pix_max;
+};
+
+__global__ void __launch_bounds__(kThreadsX * kTileH)
+sao_kernel(const SaoArgs a) {
+  __shared__ __align__(16) int tile[(kTileH + 2) * kPitch];
+  __shared__ int s_prm[kMaxCtbCols][kSaoRows];
+  // which plane, which tile (static indices keep the planes in the
+  // parameter space)
+  SaoPlane P = a.p[0];
+  int b = blockIdx.x;
+#pragma unroll
+  for (int z = 1; z < 3; ++z) {
+    if (z >= a.n || b < P.tiles) break;
+    b -= P.tiles;
+    P = a.p[z];
   }
-  const int out = clampi(cen + delta, 0, pix_max);
-  const int x_loc = x & ((1 << log2_cs_h) - 1);
-  const bool in_x = x_loc >= prm[11 * nctb + ci] && x_loc < prm[12 * nctb + ci];
-  const bool keep = (x == 0 && prm[7 * nctb + ci] != 0) ||
-                    (x == W - 1 && prm[8 * nctb + ci] != 0) ||
-                    (y == 0 && prm[9 * nctb + ci] != 0 && in_x) ||
-                    (y == H - 1 && prm[10 * nctb + ci] != 0 && in_x);
-  dst[y * W + x] = keep ? cen : out;
+  // b / tiles_x by the reciprocal: exact while b * tiles_x < 2^32
+  const int by = (int)__umulhi((unsigned)b, P.inv_tiles_x);
+  const int x0 = (b - by * P.tiles_x) * kTileW, y0 = by * kTileH;
+  stage_tile<1>(P.src, P.H, P.W, x0, y0, tile);
+  const int tid = threadIdx.y * kThreadsX + threadIdx.x;
+  const int cx0 = x0 >> P.log2_cs_h, cy = y0 >> P.log2_cs_v;
+  if (tid < kMaxCtbCols * kSaoRows) {
+    const int j = tid / kSaoRows, r = tid - j * kSaoRows;
+    if (cx0 + j < P.cw)
+      s_prm[j][r] = P.prm[(r * P.ch + cy) * P.cw + cx0 + j];
+  }
+  __syncthreads();
+  const int x = x0 + kLane * threadIdx.x, y = y0 + threadIdx.y;
+  if (x >= P.W || y >= P.H) return;
+  const int* prm = s_prm[(x >> P.log2_cs_h) - cx0];
+  // the thread's samples are mid[kPadX + k]
+  const int* mid = tile + (threadIdx.y + 1) * kPitch + kLane * threadIdx.x;
+  const int4 c4 = *reinterpret_cast<const int4*>(mid + kPadX);
+  const int cen[kLane] = {c4.x, c4.y, c4.z, c4.w};
+  const int typ = prm[0], m1 = prm[1];
+  int delta[kLane] = {0, 0, 0, 0};
+  if (typ == kSaoBand) {
+#pragma unroll
+    for (int k = 0; k < kLane; ++k) {
+      const int rel = ((cen[k] >> a.shift) - m1) & 31;
+      if (rel < 4) delta[k] = prm[2 + rel];
+    }
+  } else if (typ == kSaoEdge) {
+    // first neighbour of the EO class (0: horizontal, 1: vertical, 2: 135
+    // degrees, 3: 45 degrees) as an offset in the tile; the second lies
+    // opposite.  One code path for all classes: the CTBs a warp spans
+    // differ in class.
+    const int ax_ = m1 == 1 ? 0 : m1 == 3 ? 1 : -1;
+    const int off = (m1 == 0 ? 0 : -kPitch) + ax_;
+#pragma unroll
+    for (int k = 0; k < kLane; ++k) {
+      const int c = cen[k];
+      delta[k] = prm[4 + clampi(c - mid[kPadX + k + off], -1, 1) +
+                     clampi(c - mid[kPadX + k - off], -1, 1)];
+    }
+  }
+  int out[kLane];
+#pragma unroll
+  for (int k = 0; k < kLane; ++k)
+    out[k] = clampi(cen[k] + delta[k], 0, a.pix_max);
+  // the keep map: only threads on the picture's border can have one
+  if (x == 0 || x + kLane == P.W || y == 0 || y == P.H - 1) {
+    const int kl = prm[7], kr = prm[8], ax = prm[11], bx = prm[12];
+    const bool keep_row =
+        (y == 0 && prm[9] != 0) || (y == P.H - 1 && prm[10] != 0);
+#pragma unroll
+    for (int k = 0; k < kLane; ++k) {
+      const int xk = x + k;
+      const int x_loc = xk & ((1 << P.log2_cs_h) - 1);
+      if ((xk == 0 && kl != 0) || (xk == P.W - 1 && kr != 0) ||
+          (keep_row && x_loc >= ax && x_loc < bx))
+        out[k] = cen[k];
+    }
+  }
+  store4(P.dst + (int64_t)y * P.W + x, out);
 }
 
 // ---------------------------------------------------------------------------
 // ALF.  Replaces ffvvc_tpu/ops/alf_device.py::_alf_pallas (body _alf_math)
 // in its fused form fused_device._alf_filter_plane.
 //
-// The 7x7 (luma) or 5x5 (chroma) clipped diamond: for each slot s of the
-// 12-bit mask, sum cf*(clip(v0-cur, +-cl) + clip(v1-cur, +-cl)) with v0/v1
-// read from the edge-padded source P3 at the virtual-boundary-resolved
-// rows rowsel[k][y], round with >>7 (>>10 on the two rows at the virtual
+// The 7x7 (luma) or 5x5 (chroma) clipped diamond: for each slot s, sum
+// cf*(clip(v0-cur, +-cl) + clip(v1-cur, +-cl)) over the two opposite taps
+// v0/v1 of the slot, round with >>7 (>>10 on the two rows at the virtual
 // boundary), add to cur and clip.  The TPU kernel read 48 [H, W] planes
-// (tap samples, coefficients, clips); this one reads coefficients and
-// clips per block (cf/cl: int32 [nby, nbx, 12], a 4x4 block for luma and a
-// CTB for chroma, set/class gather and transpose already applied) and the
-// taps straight from P3, whose rows neighbouring threads share in L1.
+// (tap samples, coefficients, clips).  Here:
+//  * taps come from the shared tile; the virtual-boundary row substitution
+//    is computed from y: with d = (y mod CTB height) - vb_pos, every tap row
+//    offset is clamped to +-reach, reach = 0 for d in {-1, 0}, 1 for
+//    {-2, 1}, 2 for {-3, 2}, else 3 (alf_device._vb_row_offsets: a
+//    substituted row is always a nearer one), so the halo of 3 (luma) or 2
+//    (chroma) rows suffices and no row table is read;
+//  * luma coefficients are looked up by index: per 4x4 block the class ci
+//    and transpose ti from the classification, per CTB the filter set, and
+//    the [sets, 25, 12] coefficient and clip tables.  The transpose is a
+//    permutation of the 12 slots, packed 4 bits a slot.  While the tile is
+//    staged, four threads per 4x4 block of the tile gather the block's 12
+//    coefficients and 12 clips, already permuted, into shared memory; every
+//    thread then reads those of its block with six 16-byte loads;
+//  * chroma reads its coefficients from the [sets, 12] tables by the per-CTB
+//    set index: a block copies those of the at most four CTBs its tile
+//    touches into shared memory as the same records; both chroma planes go
+//    through one launch (blockIdx.z).
+// A thread's four samples share one 4x4 block row, so coefficients are
+// fetched once for four samples.
 // ---------------------------------------------------------------------------
 
-// (row plane a, dx a, row plane b, dx b) of slot s; row planes
-// 0:+0 1:+1 2:-1 3:+2 4:-2 5:+3 6:-3 (alf_device._LUMA_TAPS).  A switch
-// rather than a table so that, with the slot loop unrolled, every index
-// folds to a constant and row[] stays in registers.
-__device__ __forceinline__ void alf_tap(int s, int& ka, int& da, int& kb,
-                                        int& db) {
-  switch (s) {
-    case 0: ka = 5; da = 0; kb = 6; db = 0; break;
-    case 1: ka = 3; da = 1; kb = 4; db = -1; break;
-    case 2: ka = 3; da = 0; kb = 4; db = 0; break;
-    case 3: ka = 3; da = -1; kb = 4; db = 1; break;
-    case 4: ka = 1; da = 2; kb = 2; db = -2; break;
-    case 5: ka = 1; da = 1; kb = 2; db = -1; break;
-    case 6: ka = 1; da = 0; kb = 2; db = 0; break;
-    case 7: ka = 1; da = -1; kb = 2; db = 1; break;
-    case 8: ka = 1; da = -2; kb = 2; db = 2; break;
-    case 9: ka = 0; da = 3; kb = 0; db = -3; break;
-    case 10: ka = 0; da = 2; kb = 0; db = -2; break;
-    default: ka = 0; da = 1; kb = 0; db = -1; break;
+constexpr int kAlfClasses = 25;
+constexpr int kAlfSlots = 12;
+constexpr int kSetWords = kAlfClasses * kAlfSlots;
+constexpr int kBlkCols = kTileW / 4;   // 4x4 blocks across a tile
+constexpr int kBlkRows = kTileH / 4;
+// words of a block's record in shared memory: 12 coefficients, 12 clips,
+// padded so that the 16-byte reads of eight neighbouring threads fall into
+// different banks
+constexpr int kCoefPitch = 28;
+constexpr int kChromaCtbCols = kTileW / 16;   // the narrowest chroma CTB
+
+// alf._TRANSPOSE_IDX, slot s in bits [4s, 4s + 4)
+constexpr unsigned long long kPerm0 = 0xBA9876543210ull;
+constexpr unsigned long long kPerm1 = 0x62037B518A49ull;
+constexpr unsigned long long kPerm2 = 0xBA9456781230ull;
+constexpr unsigned long long kPerm3 = 0x62015B734A89ull;
+
+struct AlfPlane {
+  const short* src;
+  short* out;
+  const int* set;   // int32 [ch, cw] filter set of each CTB
+  const int* cf;    // luma int32 [sets, 25, 12]; chroma int32 [sets, 12]
+  const int* cl;
+};
+
+struct AlfArgs {
+  AlfPlane p[2];
+  const int* ci;    // luma: int32 [H / 4, W / 4] class of each 4x4 block
+  const int* ti;    // luma: transpose index of each 4x4 block
+  int H, W, cw, log2_cs_v, log2_cs_h, vb_pos, pix_max;
+};
+
+// one slot: taps wa[. + DA] and wb[. + DB] around the thread's samples
+template <int DA, int DB>
+__device__ __forceinline__ void alf_slot(int cf, int cl, const int (&wa)[12],
+                                         const int (&wb)[12],
+                                         const int (&cur)[12],
+                                         int (&acc)[kLane]) {
+#pragma unroll
+  for (int k = 0; k < kLane; ++k) {
+    const int c0 = cur[4 + k];
+    acc[k] += cf * (clampi(wa[4 + k + DA] - c0, -cl, cl) +
+                    clampi(wb[4 + k + DB] - c0, -cl, cl));
   }
 }
 
-__global__ void alf_kernel(const int* __restrict__ cur,
-                           const int* __restrict__ P3, int pw,
-                           const int64_t* __restrict__ rowsel,
-                           const int* __restrict__ vbsel,
-                           const int* __restrict__ cf,
-                           const int* __restrict__ cl, int nbx,
-                           int blk_log2_h, int blk_log2_w, int slots,
-                           int border, int pix_max, int H, int W,
-                           int* __restrict__ out) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= W || y >= H) return;
-  const int c0 = cur[y * W + x];
-  const int blk = ((y >> blk_log2_h) * nbx + (x >> blk_log2_w)) * 12;
-  int64_t row[7];
+template <bool LUMA>
+__global__ void __launch_bounds__(kThreadsX * kTileH)
+alf_kernel(const AlfArgs a) {
+  constexpr int HY = LUMA ? 3 : 2;
+  __shared__ __align__(16) int tile[(kTileH + 2 * HY) * kPitch];
+  __shared__ __align__(16) int
+      s_coef[LUMA ? kBlkRows * kBlkCols * kCoefPitch
+                  : kChromaCtbCols * 2 * kAlfSlots];
+  const AlfPlane P = blockIdx.z ? a.p[1] : a.p[0];
+  const int x0 = blockIdx.x * kTileW, y0 = blockIdx.y * kTileH;
+  stage_tile<HY>(P.src, a.H, a.W, x0, y0, tile);
+  // the tile's rows lie in one CTB row: a CTB is at least 16 high
+  const int cx0 = x0 >> a.log2_cs_h, cy = y0 >> a.log2_cs_v;
+  const int tid = threadIdx.y * kThreadsX + threadIdx.x;
+  if constexpr (LUMA) {
+    // thread -> (4x4 block of the tile, a quarter of its slots)
+    const int b = tid >> 2, s0 = 3 * (tid & 3);
+    const int bx = (x0 >> 2) + (b & (kBlkCols - 1));
+    const int by = (y0 >> 2) + b / kBlkCols;
+    if (bx < (a.W >> 2) && by < (a.H >> 2)) {
+      const int blk = by * (a.W >> 2) + bx;
+      const int t = a.ti[blk];
+      const unsigned long long perm =
+          t == 0 ? kPerm0 : t == 1 ? kPerm1 : t == 2 ? kPerm2 : kPerm3;
+      const int base =
+          P.set[cy * a.cw + ((bx << 2) >> a.log2_cs_h)] * kSetWords +
+          a.ci[blk] * kAlfSlots;
+      int* rec = s_coef + b * kCoefPitch;
 #pragma unroll
-  for (int k = 0; k < 7; ++k) row[k] = rowsel[(int64_t)k * H + y] * pw;
-  const int xb = border + x;
-  int acc = 0;
-#pragma unroll
-  for (int s = 0; s < 12; ++s) {
-    if (!((slots >> s) & 1)) continue;
-    int ka, da, kb, db;
-    alf_tap(s, ka, da, kb, db);
-    const int v0 = P3[row[ka] + xb + da];
-    const int v1 = P3[row[kb] + xb + db];
-    const int c = cl[blk + s];
-    acc += cf[blk + s] * (clampi(v0 - c0, -c, c) + clampi(v1 - c0, -c, c));
+      for (int k = 0; k < 3; ++k) {
+        const int s = s0 + k;
+        const int i = base + (int)((perm >> (4 * s)) & 15);
+        rec[s] = __ldg(P.cf + i);
+        rec[kAlfSlots + s] = __ldg(P.cl + i);
+      }
+    }
+  } else if (tid < kChromaCtbCols * 2 * kAlfSlots) {
+    // thread -> (CTB column of the tile, word of its record)
+    const int j = tid / (2 * kAlfSlots), r = tid - j * (2 * kAlfSlots);
+    if (cx0 + j < a.cw) {
+      const int base = P.set[cy * a.cw + cx0 + j] * kAlfSlots;
+      s_coef[tid] = r < kAlfSlots ? __ldg(P.cf + base + r)
+                                  : __ldg(P.cl + base + r - kAlfSlots);
+    }
   }
-  acc = vbsel[y] != 0 ? (acc + (1 << 9)) >> 10 : (acc + 64) >> 7;
-  out[y * W + x] = clampi(c0 + acc, 0, pix_max);
+  __syncthreads();
+  const int x = x0 + kLane * threadIdx.x, y = y0 + threadIdx.y;
+  if (x >= a.W || y >= a.H) return;
+
+  // coefficients and clips of the thread's four samples
+  int cf[kAlfSlots], cl[kAlfSlots];
+  {
+    const int4* rec = reinterpret_cast<const int4*>(
+        s_coef +
+        (LUMA ? ((threadIdx.y >> 2) * kBlkCols + threadIdx.x) * kCoefPitch
+              : ((x >> a.log2_cs_h) - cx0) * 2 * kAlfSlots));
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const int4 f = rec[j], l = rec[3 + j];
+      cf[4 * j] = f.x; cf[4 * j + 1] = f.y;
+      cf[4 * j + 2] = f.z; cf[4 * j + 3] = f.w;
+      cl[4 * j] = l.x; cl[4 * j + 1] = l.y;
+      cl[4 * j + 2] = l.z; cl[4 * j + 3] = l.w;
+    }
+  }
+
+  // tap rows: offsets +-1, +-2, +-3 clamped to the reach the virtual
+  // boundary leaves
+  const int d = (y & ((1 << a.log2_cs_v) - 1)) - a.vb_pos;
+  const int reach = (d == -1 || d == 0) ? 0
+                    : (d == -2 || d == 1) ? 1
+                    : (d == -3 || d == 2) ? 2 : 3;
+  const int* mid = tile + (threadIdx.y + HY) * kPitch + kLane * threadIdx.x;
+  const int o1 = min(1, reach) * kPitch, o2 = min(2, reach) * kPitch;
+  int cur[12], wa[12], wb[12];
+  int acc[kLane] = {0, 0, 0, 0};
+  ld12(mid, cur);
+  if constexpr (LUMA) {
+    const int o3 = min(3, reach) * kPitch;
+    ld4(mid + o3, wa);
+    ld4(mid - o3, wb);
+    alf_slot<0, 0>(cf[0], cl[0], wa, wb, cur, acc);
+  }
+  ld12(mid + o2, wa);
+  ld12(mid - o2, wb);
+  if constexpr (LUMA) {
+    alf_slot<1, -1>(cf[1], cl[1], wa, wb, cur, acc);
+    alf_slot<-1, 1>(cf[3], cl[3], wa, wb, cur, acc);
+  }
+  alf_slot<0, 0>(cf[2], cl[2], wa, wb, cur, acc);
+  ld12(mid + o1, wa);
+  ld12(mid - o1, wb);
+  if constexpr (LUMA) {
+    alf_slot<2, -2>(cf[4], cl[4], wa, wb, cur, acc);
+    alf_slot<-2, 2>(cf[8], cl[8], wa, wb, cur, acc);
+  }
+  alf_slot<1, -1>(cf[5], cl[5], wa, wb, cur, acc);
+  alf_slot<0, 0>(cf[6], cl[6], wa, wb, cur, acc);
+  alf_slot<-1, 1>(cf[7], cl[7], wa, wb, cur, acc);
+  if constexpr (LUMA) alf_slot<3, -3>(cf[9], cl[9], cur, cur, cur, acc);
+  alf_slot<2, -2>(cf[10], cl[10], cur, cur, cur, acc);
+  alf_slot<1, -1>(cf[11], cl[11], cur, cur, cur, acc);
+
+  int out[kLane];
+#pragma unroll
+  for (int k = 0; k < kLane; ++k) {
+    const int r = reach == 0 ? (acc[k] + (1 << 9)) >> 10 : (acc[k] + 64) >> 7;
+    out[k] = clampi(cur[4 + k] + r, 0, a.pix_max);
+  }
+  store4(P.out + (int64_t)y * a.W + x, out);
 }
 
 // ---------------------------------------------------------------------------
@@ -173,76 +409,139 @@ __global__ void alf_kernel(const int* __restrict__ cur,
 // in its fused form fused_device._cc_filter.
 //
 // A 7-tap luma-to-chroma correction sum cf_j*(v_j - cur_luma) over the
-// edge-padded pre-ALF luma P3l at luma column (x << hs), rounded with
-// (acc + 64) >> 7, clipped to [-half, half - 1], added to chroma and
-// clipped.  Coefficients are read per chroma CTB (cf: int32 [ch, cw, 7])
-// instead of the TPU kernel's seven [H, W] coefficient planes and seven
-// gathered tap planes.
+// pre-ALF luma at luma column (x << hs) and the virtual-boundary-resolved
+// rows rowsel[j][y] (row indices of the luma plane edge-padded by 3: the
+// kernel takes the border off and clamps row and column at the picture
+// edge instead of reading a padded copy), rounded with (acc + 64) >> 7,
+// clipped to [-half, half - 1], added to chroma and clipped.  Coefficients
+// are read per chroma CTB (cf: int32 [ch, cw, 7]) instead of the TPU
+// kernel's seven [H, W] coefficient planes and seven gathered tap planes.
+// One thread per sample, 32x8 threads a block.
 // ---------------------------------------------------------------------------
 
-__global__ void cc_kernel(const int* __restrict__ dst,
-                          const int* __restrict__ P3l, int pw,
+constexpr int kCcBlockX = 32;
+constexpr int kCcBlockY = 8;
+constexpr int kLumaBorder = 3;   // alf.ALF_BORDER_LUMA, the base of rowsel
+
+__global__ void cc_kernel(const short* __restrict__ dst,
+                          const short* __restrict__ luma, int H, int W,
                           const int64_t* __restrict__ rowsel,
                           const int* __restrict__ skip,
                           const int* __restrict__ cf, int cw, int log2_cs_v,
                           int log2_cs_h, int hs, int half, int pix_max,
-                          int Hc, int Wc, int* __restrict__ out) {
+                          int Hc, int Wc, short* __restrict__ out) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= Wc || y >= Hc) return;
   int acc = 0;
   if (skip[y] == 0) {
-    const int64_t r0 = rowsel[y] * pw;
-    const int64_t r1 = rowsel[(int64_t)Hc + y] * pw;
-    const int64_t r2 = rowsel[2 * (int64_t)Hc + y] * pw;
-    const int64_t r3 = rowsel[3 * (int64_t)Hc + y] * pw;
-    const int xl = 3 + (x << hs);  // ALF_BORDER_LUMA + luma column
+    const short* r[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      r[j] = luma + (int64_t)clampi((int)rowsel[(int64_t)j * Hc + y] -
+                                        kLumaBorder, 0, H - 1) * W;
+    const int xl = x << hs;
+    const int xm = max(xl - 1, 0), xp = min(xl + 1, W - 1);
     const int* c = cf + ((y >> log2_cs_v) * cw + (x >> log2_cs_h)) * 7;
-    const int cur = P3l[r1 + xl];
-    acc = c[0] * (P3l[r0 + xl] - cur) + c[1] * (P3l[r1 + xl - 1] - cur) +
-          c[2] * (P3l[r1 + xl + 1] - cur) + c[3] * (P3l[r2 + xl - 1] - cur) +
-          c[4] * (P3l[r2 + xl] - cur) + c[5] * (P3l[r2 + xl + 1] - cur) +
-          c[6] * (P3l[r3 + xl] - cur);
+    const int cur = r[1][xl];
+    acc = c[0] * (r[0][xl] - cur) + c[1] * (r[1][xm] - cur) +
+          c[2] * (r[1][xp] - cur) + c[3] * (r[2][xm] - cur) +
+          c[4] * (r[2][xl] - cur) + c[5] * (r[2][xp] - cur) +
+          c[6] * (r[3][xl] - cur);
   }
   acc = clampi((acc + 64) >> 7, -half, half - 1);
-  out[y * Wc + x] = clampi(dst[y * Wc + x] + acc, 0, pix_max);
+  out[y * Wc + x] = (short)clampi(dst[y * Wc + x] + acc, 0, pix_max);
 }
 
 }  // namespace
 
 extern "C" {
 
-int ffvvc_sao(const void* src, void* dst, int H, int W, const void* prm,
-              int ch, int cw, int log2_cs_v, int log2_cs_h, int shift,
+// ptrs: [3n] (src, dst, prm) of each plane; dims: [6n] (H, W, ch, cw,
+// log2_cs_v, log2_cs_h) of each plane; both host arrays.
+int ffvvc_sao(int n, const void* const* ptrs, const int* dims, int shift,
               int pix_max, void* stream) {
-  sao_kernel<<<grid_for(H, W), dim3(kBlockX, kBlockY), 0,
-               (cudaStream_t)stream>>>(
-      (const int*)src, (int*)dst, H, W, (const int*)prm, ch, cw, log2_cs_v,
-      log2_cs_h, shift, pix_max);
+  SaoArgs a;
+  a.n = n;
+  a.shift = shift;
+  a.pix_max = pix_max;
+  int blocks = 0;
+  for (int z = 0; z < n; ++z) {
+    SaoPlane& p = a.p[z];
+    p.src = (const short*)ptrs[3 * z];
+    p.dst = (short*)ptrs[3 * z + 1];
+    p.prm = (const int*)ptrs[3 * z + 2];
+    p.H = dims[6 * z];
+    p.W = dims[6 * z + 1];
+    p.ch = dims[6 * z + 2];
+    p.cw = dims[6 * z + 3];
+    p.log2_cs_v = dims[6 * z + 4];
+    p.log2_cs_h = dims[6 * z + 5];
+    p.tiles_x = cdiv(p.W, kTileW);
+    p.tiles = p.tiles_x * cdiv(p.H, kTileH);
+    if (p.W <= 0 || p.H <= 0 || (int64_t)p.tiles * p.tiles_x >= (1ll << 32))
+      return (int)cudaErrorInvalidValue;
+    p.inv_tiles_x = (unsigned)((1ull << 32) / (unsigned)p.tiles_x) + 1u;
+    blocks += p.tiles;
+  }
+  for (int z = n; z < 3; ++z) a.p[z] = a.p[0];
+  sao_kernel<<<blocks, dim3(kThreadsX, kTileH), 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-int ffvvc_alf(const void* cur, const void* P3, int pw, const void* rowsel,
-              const void* vbsel, const void* cf, const void* cl, int nbx,
-              int blk_log2_h, int blk_log2_w, int slots, int border,
-              int pix_max, int H, int W, void* out, void* stream) {
-  alf_kernel<<<grid_for(H, W), dim3(kBlockX, kBlockY), 0,
-               (cudaStream_t)stream>>>(
-      (const int*)cur, (const int*)P3, pw, (const int64_t*)rowsel,
-      (const int*)vbsel, (const int*)cf, (const int*)cl, nbx, blk_log2_h,
-      blk_log2_w, slots, border, pix_max, H, W, (int*)out);
+int ffvvc_alf_luma(const void* src, void* out, int H, int W, const void* ci,
+                   const void* ti, const void* ctb_set, int cw,
+                   const void* cf, const void* cl, int log2_cs, int pix_max,
+                   void* stream) {
+  AlfArgs a;
+  a.p[0] = AlfPlane{(const short*)src, (short*)out, (const int*)ctb_set,
+                    (const int*)cf, (const int*)cl};
+  a.p[1] = a.p[0];
+  a.ci = (const int*)ci;
+  a.ti = (const int*)ti;
+  a.H = H;
+  a.W = W;
+  a.cw = cw;
+  a.log2_cs_v = a.log2_cs_h = log2_cs;
+  a.vb_pos = (1 << log2_cs) - 4;   // alf.ALF_VB_POS_ABOVE_LUMA
+  a.pix_max = pix_max;
+  alf_kernel<true><<<dim3(cdiv(W, kTileW), cdiv(H, kTileH), 1),
+                     dim3(kThreadsX, kTileH), 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-int ffvvc_cc(const void* dst, const void* P3l, int pw, const void* rowsel,
-             const void* skip, const void* cf, int cw, int log2_cs_v,
-             int log2_cs_h, int hs, int half, int pix_max, int Hc, int Wc,
-             void* out, void* stream) {
-  cc_kernel<<<grid_for(Hc, Wc), dim3(kBlockX, kBlockY), 0,
-              (cudaStream_t)stream>>>(
-      (const int*)dst, (const int*)P3l, pw, (const int64_t*)rowsel,
+// ptrs: [5n] (src, out, set, cf, cl) of each chroma plane, a host array.
+int ffvvc_alf_chroma(int n, const void* const* ptrs, int H, int W, int cw,
+                     int log2_cs_v, int log2_cs_h, int pix_max,
+                     void* stream) {
+  AlfArgs a;
+  for (int z = 0; z < 2; ++z) {
+    const void* const* q = ptrs + 5 * (z < n ? z : 0);
+    a.p[z] = AlfPlane{(const short*)q[0], (short*)q[1], (const int*)q[2],
+                      (const int*)q[3], (const int*)q[4]};
+  }
+  a.ci = a.ti = nullptr;
+  a.H = H;
+  a.W = W;
+  a.cw = cw;
+  a.log2_cs_v = log2_cs_v;
+  a.log2_cs_h = log2_cs_h;
+  a.vb_pos = (1 << log2_cs_v) - 2;   // alf.ALF_VB_POS_ABOVE_CHROMA
+  a.pix_max = pix_max;
+  alf_kernel<false><<<dim3(cdiv(W, kTileW), cdiv(H, kTileH), n),
+                      dim3(kThreadsX, kTileH), 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+int ffvvc_cc(const void* dst, const void* luma, int H, int W,
+             const void* rowsel, const void* skip, const void* cf, int cw,
+             int log2_cs_v, int log2_cs_h, int hs, int half, int pix_max,
+             int Hc, int Wc, void* out, void* stream) {
+  cc_kernel<<<dim3(cdiv(Wc, kCcBlockX), cdiv(Hc, kCcBlockY)),
+              dim3(kCcBlockX, kCcBlockY), 0, (cudaStream_t)stream>>>(
+      (const short*)dst, (const short*)luma, H, W, (const int64_t*)rowsel,
       (const int*)skip, (const int*)cf, cw, log2_cs_v, log2_cs_h, hs, half,
-      pix_max, Hc, Wc, (int*)out);
+      pix_max, Hc, Wc, (short*)out);
   return (int)cudaGetLastError();
 }
 

@@ -1,51 +1,426 @@
-"""Decoder of the port: `ffvvc_tpu.decoder.VVCDecoder` with the device
-half in PyTorch.
+"""Top-level decoder orchestration of the port.
 
-The host half (NAL dispatch, parameter sets, DPB, CABAC parse, native C
-recon, host filters) is the JAX package's, inherited.  `_decode_frame` is
-a copy of `ffvvc_tpu/decoder.py`'s, kept diffable line by line against it,
-with the device dispatch replaced:
+Reference analogue: libavcodec/vvc/vvcdec.c (decode_nal_units
+:759, decode_slice :693, frame_setup :679, slice_init_entry_points :453).
 
-  * the device itx call is dropped (the native recon's own transforms run);
-  * the row-pipeline gate and the fused-chain gate test `device_pipeline`,
-    and the fused chain is this package's (`ops/fused_device.py`), run on
-    `config.device`;
+The host-side front-end driver: NAL dispatch, parameter-set activation,
+DPB and output order, per-slice entry-point CABAC parsing into FrameTabs
+tensors, and the host reconstruction.  A copy of `ffvvc_tpu/decoder.py`,
+kept diffable line by line against it, with the device half in PyTorch:
+
+  * the mesh set-up and its drains are left out (`DecoderConfig` refuses a
+    mesh);
+  * in `_decode_frame` the device itx call is dropped (the native recon's
+    own transforms run); the row-pipeline gate and the fused-chain gate
+    test `device_pipeline`, and the fused chain is this package's
+    (`ops/fused_device.py`), run on `config.device`;
   * the branches of the toggles the port refuses (`device_mc`,
     `device_intra`, `device_lmcs`, `device_deblock`, `device_sao`,
-    `device_alf`, a mesh) are removed: `DecoderConfig` raises on them.
-
-The decoder therefore never reaches the JAX package's device modules.
+    `device_alf`) are removed: `DecoderConfig` raises on them.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
 
-from ffvvc_tpu import decoder as _ref
-from ffvvc_tpu.bitstream import NalType, is_idr, is_rap
-from ffvvc_tpu.bitstream.h266 import SLICE_I
-from ffvvc_tpu import ps as derived
-from ffvvc_tpu.ctu import FrameTabs
-from ffvvc_tpu.recon import FrameBuffer
-
+from .bitstream import split_annexb, BitReader, NalType, is_vcl, is_idr, is_rap
+from .bitstream.h266 import (H266ParamSets, read_sps, read_pps, read_aps,
+                             read_vps, read_picture_header, read_slice_header,
+                             read_sei, SLICE_I)
+from . import ps as derived
+from .cabac.engine import CabacDecoder, make_states
+from .cabac.native import NativeCabacDecoder, load_lib
+from .ctu import CtuCoder, FrameTabs
+from .recon import FrameBuffer, Reconstructor
 from .config import DecoderConfig
 
-FLAG_OUTPUT, FLAG_SHORT_REF = _ref.FLAG_OUTPUT, _ref.FLAG_SHORT_REF
-FLAG_LONG_REF = _ref.FLAG_LONG_REF
-DecodedFrame = _ref.DecodedFrame
+
+# frame flags (reference VVC_FRAME_FLAG_*, vvc_refs.c)
+FLAG_OUTPUT, FLAG_SHORT_REF, FLAG_LONG_REF, FLAG_BUMPING = 1, 2, 4, 8
 
 
-class VVCDecoder(_ref.VVCDecoder):
-    """VVC decoder whose fused post-recon filter chain runs in PyTorch on
-    `config.device` (see the module docstring)."""
+@dataclasses.dataclass(eq=False)       # identity eq/hash: DPB membership
+class DecodedFrame:
+    poc: int
+    buffer: FrameBuffer
+    tabs: FrameTabs
+    flags: int = 0
+    sequence: int = 0
+    slice_rpls: list = dataclasses.field(default_factory=list)
+
+    def to_yuv_bytes(self):
+        return self.buffer.to_yuv_bytes()
+
+    # True while the producing decoder still holds this frame in its DPB
+    # (it may serve as a prediction reference); recycle() is a no-op then.
+    _dpb_held: bool = False
+    # pending pixel-stage future (frame pipeline); None once landed or when
+    # the frame ran synchronously.  Inter frames wait on their REFERENCE
+    # frames' futures only (RPL-aware progress gating).
+    _pix_future = None
+    # row-granular pixel progress (the host analogue of the reference's
+    # per-frame FrameProgress rows, vvc_refs.c:532-565): luma rows
+    # [0, _rows_final) are filter-final.  _row_cond is created when the
+    # frame is submitted to the pixel worker; publish/wait synchronize
+    # a consumer frame's MC with this frame's rolling filter pipeline.
+    _row_cond = None
+    _rows_final = 0
+
+    def publish_rows(self, y):
+        cond = self._row_cond
+        if cond is None:
+            self._rows_final = y
+            return
+        with cond:
+            if y > self._rows_final:
+                self._rows_final = y
+            cond.notify_all()
+
+    def wait_rows(self, y):
+        """Block until luma rows [0, y) of this frame are filter-final.
+        Falls through immediately when the frame has no pending pixel
+        work (synchronous decode / already landed)."""
+        fut = self._pix_future
+        if fut is None or fut.done():
+            return
+        cond = self._row_cond
+        if cond is None:
+            fut.result()
+            return
+        with cond:
+            while self._rows_final < y:
+                cond.wait()
+
+    def recycle(self):
+        """Return the frame's planes/tabs to the per-process pool.  Callers
+        may use this once they are done with the pixel data AND the decoder
+        that produced the frame is done decoding (e.g. after converting the
+        outputs of a completed decode); the arrays are reused by later
+        frames.  A frame the decoder still references (in-DPB) is left
+        intact — recycling it would let a later frame overwrite live
+        reference pixels."""
+        if self._dpb_held:
+            return
+        if self.buffer is not None:
+            sps, pps = self.buffer.sps, self.buffer.pps
+            self.buffer.recycle()
+            self.tabs.recycle(sps, pps)
+            self.buffer = None
+            self.tabs = None
+
+    # --- TMVP interface (reference ref->tab_dmvr_mvf + rpl_tab) -----------
+
+    def get_mvf(self, x, y):
+        """Collocated MV lookup from the post-DMVR grid."""
+        from .mvs import MvField
+        t = self.tabs
+        xi, yi = x >> 2, y >> 2
+        f = MvField()
+        f.pred_flag = int(t.col_pf[yi, xi])
+        f.mv = [[int(t.col_mv[0, yi, xi, 0]), int(t.col_mv[0, yi, xi, 1])],
+                [int(t.col_mv[1, yi, xi, 0]), int(t.col_mv[1, yi, xi, 1])]]
+        f.ref_idx = [int(t.col_ref[0, yi, xi]), int(t.col_ref[1, yi, xi])]
+        return f
+
+    def rpl_at(self, x, y):
+        """RPL of the slice containing (x, y) (ff_vvc_get_ref_list)."""
+        t = self.tabs
+        ctb_log2 = self._ctb_log2
+        si = int(t.slice_idx[y >> ctb_log2, x >> ctb_log2])
+        return self.slice_rpls[si]
+
+    _ctb_log2 = 6
+
+
+class VVCDecoder:
+    """VVC decoder: Annex-B bytes in, decoded frames out in output (POC
+    bumping) order, matching the reference DPB logic (vvc_refs.c:196-292)."""
 
     def __init__(self, config: DecoderConfig = None):
-        config = config or DecoderConfig()
-        if not isinstance(config, DecoderConfig):
+        self.config = config or DecoderConfig()
+        if not isinstance(self.config, DecoderConfig):
             raise TypeError("ffvvc_tpu_torch.VVCDecoder needs an "
                             "ffvvc_tpu_torch.DecoderConfig")
-        super().__init__(config)
+        self.ps = H266ParamSets()
+        self.sps = None
+        self.pps = None
+        self.ph = None
+        self.prev_poc = 0
+        self.frames = []
+        self.dpb = []           # DecodedFrame entries with flags
+        self.seq_decode = 0
+        self.seq_output = 0
+        # GDR recovery state (decode_recovery_flag/poc, vvc_ps.c:745-761)
+        self.last_eos = 1
+        # decoded-picture-hash suffix SEI pending for the in-flight AU;
+        # mesh mode verifies after the deferred filters drain
+        self._pending_dph = None
+        self._dph_pending = []
+        # True once an inter frame was decoded: gates the rolling row
+        # pipeline (all-intra streams have no cross-frame pixel waits)
+        self._seen_inter = False
+        self.no_output_before_recovery = 0
+        self.gdr_recovery_point_poc = 0
+        self.gdr_recovered = True
+        # per-stage wall time (seconds) accumulated when config.profile
+        self.stage_times = {}
+        # frame pipeline: pixel stages of queued frames run on this worker
+        # while later frames parse (config.pipeline_frames/pipeline_depth)
+        self._pix_exec = None
+        self._pix_futures = []
+
+    def decode(self, data: bytes, flush: bool = True):
+        """Decode an Annex-B chunk.  With flush=True (whole-stream call)
+        all frames are drained in output order; with flush=False (streaming:
+        one access unit per call, see bitstream/au.py) frames are released
+        per DPB bumping rules and the tail is drained by flush()."""
+        nals = split_annexb(data)
+        # group into access units by PH/first-slice boundaries
+        frame_nals = []
+        out = []
+        cur_slices = []
+        cur_ph = None
+
+        resilient = self.config.error_resilient
+
+        def flush_frame():
+            nonlocal cur_slices, cur_ph
+            if cur_slices:
+                if resilient:
+                    # error latch (vvc_thread.c:605-617): first failure marks
+                    # the frame broken; decode resumes at the next AU
+                    try:
+                        out.extend(self._decode_frame(cur_ph, cur_slices))
+                    except Exception:
+                        pass
+                else:
+                    out.extend(self._decode_frame(cur_ph, cur_slices))
+            cur_slices = []
+            cur_ph = None
+
+        def handle(nal):
+            nonlocal cur_ph
+            t = nal.nal_unit_type
+            r = BitReader(nal.rbsp)
+            if t == NalType.SPS:
+                # parameter sets decode in NAL order (decode_nal_unit,
+                # vvcdec.c:724): a pending frame must decode against the
+                # param sets active when its slices arrived, not ones from
+                # a following AU
+                flush_frame()
+                self.ps.store_sps(read_sps(r, nal.nuh_layer_id))
+            elif t == NalType.PPS:
+                flush_frame()
+                self.ps.store_pps(read_pps(r, self.ps))
+            elif t in (NalType.PREFIX_APS, NalType.SUFFIX_APS):
+                flush_frame()
+                self.ps.store_aps(read_aps(r))
+            elif t == NalType.VPS:
+                flush_frame()
+                vps = read_vps(r)
+                self.ps.vps[vps.vps_video_parameter_set_id] = vps
+            elif t == NalType.PH:
+                flush_frame()
+                self.ps.ph = read_picture_header(r, self.ps)
+            elif is_vcl(t):
+                sh = read_slice_header(r, self.ps, t)
+                if sh.sh_picture_header_in_slice_header_flag and cur_slices:
+                    flush_frame()
+                cur_ph = sh.ph
+                cur_slices.append((nal, sh, r.pos))
+            elif t in (NalType.PREFIX_SEI, NalType.SUFFIX_SEI):
+                try:
+                    self.last_sei = read_sei(r, t == NalType.PREFIX_SEI)
+                except Exception:
+                    self.last_sei = []
+                if t == NalType.SUFFIX_SEI and cur_slices:
+                    # decoded-picture-hash (H.274: suffix SEI) applies to
+                    # the access unit it follows
+                    for ptype, payload in self.last_sei:
+                        if ptype == 132:
+                            from .bitstream.h266 import parse_dph
+                            try:
+                                self._pending_dph = parse_dph(payload)
+                            except Exception:
+                                self._pending_dph = None
+            elif t in (NalType.EOS, NalType.EOB):
+                flush_frame()
+                self.last_eos = 1
+            # AUD/FD/OPI/DCI: no decoder state
+
+        for nal in nals:
+            if resilient:
+                try:
+                    handle(nal)
+                except Exception:
+                    # broken NAL: drop the in-flight frame's pending slices
+                    # (decode_nal_units fail path, vvcdec.c:795-798)
+                    cur_slices = []
+                    cur_ph = None
+            else:
+                handle(nal)
+        flush_frame()
+        self._join_pixels()
+        out.extend(self._output_frames(flush=flush))
+        self._check_pending_dph()
+        if flush:
+            self._release_dpb()
+        return out
+
+    def flush(self):
+        """Drain remaining reordered frames (end of stream)."""
+        self._join_pixels()
+        out = self._output_frames(flush=True)
+        self._check_pending_dph()
+        self._release_dpb()
+        return out
+
+    def _check_pending_dph(self):
+        pend, self._dph_pending = self._dph_pending, []
+        for fr, d in pend:
+            self._check_picture_hash(fr, d)
+
+    def _release_dpb(self):
+        """End of stream: drop remaining reference holds so output frames
+        become recyclable (the analogue of avcodec_flush_buffers clearing
+        the DPB)."""
+        for f in list(self.dpb):
+            f.flags = 0
+            self._unref_check(f)
+
+    # --- DPB / output order (vvc_refs.c:196-292) ---------------------------
+
+    def _dpb_max_buffering(self):
+        sps_r = self.sps.r if self.sps else None
+        if sps_r is None:
+            return 1
+        dpb = sps_r.sps_dpb_params
+        if not dpb:
+            return 1
+        return dpb.dpb_max_dec_pic_buffering_minus1[
+            sps_r.sps_max_sublayers_minus1] + 1
+
+    def _unref_check(self, f):
+        if not f.flags and f in self.dpb:
+            self.dpb.remove(f)
+            f._dpb_held = False
+
+    def _output_frames(self, flush=False, cur_poc=None):
+        out = []
+        while True:
+            cands = [f for f in self.dpb if (f.flags & FLAG_OUTPUT) and
+                     f.sequence == self.seq_output]
+            if not cands:
+                if self.seq_output != self.seq_decode:
+                    self.seq_output += 1
+                    continue
+                break
+            if not flush and self.seq_output == self.seq_decode and \
+                    len(cands) <= self._dpb_max_buffering():
+                break
+            f = min(cands, key=lambda fr: fr.poc)
+            f.flags &= ~(FLAG_OUTPUT | FLAG_BUMPING)
+            self._unref_check(f)
+            out.append(f)
+        return out
+
+    def _bump_frame(self, cur_poc):
+        """ff_vvc_bump_frame (vvc_refs.c:255)."""
+        dpb_n = sum(1 for f in self.dpb if f.flags and
+                    f.sequence == self.seq_output and f.poc != cur_poc)
+        if dpb_n >= self._dpb_max_buffering():
+            min_poc = None
+            for f in self.dpb:
+                if f.flags == FLAG_OUTPUT and f.sequence == self.seq_output \
+                        and f.poc != cur_poc:
+                    if min_poc is None or f.poc < min_poc:
+                        min_poc = f.poc
+            if min_poc is not None:
+                for f in self.dpb:
+                    if (f.flags & FLAG_OUTPUT) and \
+                            f.sequence == self.seq_output and \
+                            f.poc <= min_poc:
+                        f.flags |= FLAG_BUMPING
+
+    def _find_ref(self, poc, use_msb):
+        mask = ~0 if use_msb else self.sps.max_pic_order_cnt_lsb - 1
+        for f in self.dpb:
+            if f.sequence == self.seq_decode and (f.poc & mask) == poc:
+                return f
+        return None
+
+    def _generate_missing_ref(self, poc):
+        """generate_missing_ref (vvc_refs.c:316): mid-gray synthesized."""
+        fb = FrameBuffer.acquire(self.sps, self.pps)
+        tabs = FrameTabs.acquire(self.sps, self.pps)
+        tabs.slice_idx[:] = 0
+        f = DecodedFrame(poc=poc, buffer=fb, tabs=tabs,
+                         sequence=self.seq_decode)
+        f._ctb_log2 = self.sps.ctb_log2_size_y
+        f.slice_rpls = [[derived.RefPicList(), derived.RefPicList()]]
+        f._dpb_held = True
+        self.dpb.append(f)
+        return f
+
+    def _build_slice_rpl(self, frame, sh, poc):
+        """ff_vvc_slice_rpl (vvc_refs.c:415)."""
+        sps, pps = self.sps, self.pps
+        rsh, ph = sh.r, sh.ph
+        max_poc_lsb = sps.max_pic_order_cnt_lsb
+        ref_lists = ph.ph_ref_pic_lists if pps.r.pps_rpl_info_in_ph_flag \
+            else rsh.ref_pic_lists
+        rpl_pair = []
+        collocated = None
+        for lx in range(2):
+            rpls = ref_lists.rpl_ref_list[lx]
+            rpl = derived.RefPicList()
+            poc_base = poc
+            prev_delta_poc_msb = 0
+            j = 0
+            for i in range(rpls.num_ref_entries):
+                if rpls.inter_layer_ref_pic_flag and \
+                        rpls.inter_layer_ref_pic_flag[i]:
+                    raise NotImplementedError("inter-layer ref")
+                if rpls.st_ref_pic_flag[i]:
+                    # delta_poc_st (vvc_refs.c:391)
+                    abs_d = rpls.abs_delta_poc_st[i]
+                    if not ((sps.r.sps_weighted_pred_flag or
+                             sps.r.sps_weighted_bipred_flag) and i != 0):
+                        abs_d += 1
+                    p = poc_base + (1 - 2 * rpls.strp_entry_sign_flag[i]) * \
+                        abs_d
+                    poc_base = p
+                    is_lt, use_msb = False, True
+                else:
+                    use_msb = ref_lists.delta_poc_msb_cycle_present_flag[lx][j]
+                    lt_poc = ref_lists.poc_lsb_lt[lx][j] \
+                        if rpls.ltrp_in_header_flag else \
+                        rpls.rpls_poc_lsb_lt[j]
+                    if use_msb:
+                        delta = ref_lists.delta_poc_msb_cycle_lt[lx][j] + \
+                            prev_delta_poc_msb
+                        lt_poc += poc - delta * max_poc_lsb - \
+                            (poc & (max_poc_lsb - 1))
+                        prev_delta_poc_msb = delta
+                    p = lt_poc
+                    is_lt = True
+                    j += 1
+                ref = self._find_ref(p, use_msb)
+                if ref is frame:
+                    raise ValueError("current frame in its own RPL")
+                if ref is None:
+                    ref = self._generate_missing_ref(p)
+                rpl.add(p, is_lt, ref)
+                # mark_ref
+                ref.flags &= ~(FLAG_LONG_REF | FLAG_SHORT_REF)
+                ref.flags |= FLAG_LONG_REF if is_lt else FLAG_SHORT_REF
+            rpl_pair.append(rpl)
+        lx = 1 - rsh.sh_collocated_from_l0_flag
+        if rsh.sh_collocated_ref_idx < rpl_pair[lx].nb_refs:
+            collocated = rpl_pair[lx].frames[rsh.sh_collocated_ref_idx]
+        return rpl_pair, collocated
 
     def _decode_frame(self, ph, slices):
         # per-stage timing (config.profile; reference VVC_THREAD_DEBUG
@@ -173,7 +548,7 @@ class VVCDecoder(_ref.VVCDecoder):
                         bool(ph.ph_chroma_residual_scale_flag)
             recon_jobs.extend(jobs)
             if sh.slice_type != SLICE_I:
-                from ffvvc_tpu.inter import InterPredictor
+                from .inter import InterPredictor
                 for rec, ctus in jobs:
                     nr = rec.native_recon
                     if nr is not None and nr._ip_ref is not None:
@@ -274,7 +649,7 @@ class VVCDecoder(_ref.VVCDecoder):
             # MC CTUs are data-independent (refs are other frames; DMVR
             # col-grid writes are per-CU disjoint): thread batched C calls
             # (inter_ctus: one ctypes call per contiguous same-job run)
-            from ffvvc_tpu.threads import resolve, run_parallel, split_ranges
+            from .threads import resolve, run_parallel, split_ranges
             nt = resolve(self.config.stage_threads)
 
             def mc_chunk(lo, hi):
@@ -301,7 +676,7 @@ class VVCDecoder(_ref.VVCDecoder):
         # with the APS contents active when its slices arrived
         alf_list = sh_list = None
         if sps.r.sps_alf_enabled_flag:
-            from ffvvc_tpu.alf import VVCALF
+            from .alf import VVCALF
             alf_list = {i: VVCALF(a) for i, a in self.ps.aps_alf.items()}
             sh_list = [sh_by_slice.get(i) for i in
                        range(max(sh_by_slice) + 1)]
@@ -386,26 +761,26 @@ class VVCDecoder(_ref.VVCDecoder):
                         blk[:] = lmcs.inv_lut[blk]
             _stage("lmcs")
             # in-loop filters (whole-frame passes per spec 8.8)
-            from ffvvc_tpu.deblock import Deblocker
-            from ffvvc_tpu.threads import resolve
+            from .deblock import Deblocker
+            from .threads import resolve
             db = Deblocker(sps, pps, tabs, fb)
             db.slice_rpls = frame.slice_rpls
             db.n_threads = resolve(self.config.stage_threads)
             db.deblock_frame()
             _stage("deblock")
-            from ffvvc_tpu.sao import SaoFilter
+            from .sao import SaoFilter
             sf = SaoFilter(sps, pps, tabs, fb)
             sf.n_threads = resolve(self.config.stage_threads)
             sf.sao_frame()
             if alf_list is not None:
                 done = False
                 if self.config.native_alf:
-                    from ffvvc_tpu.native.alf import alf_frame_native
+                    from .native.alf import alf_frame_native
                     done = alf_frame_native(
                         sps, pps, tabs, fb, sh_list, alf_list,
                         resolve(self.config.stage_threads))
                 if not done:
-                    from ffvvc_tpu.alf import AlfFilter
+                    from .alf import AlfFilter
                     AlfFilter(sps, pps, tabs, fb, sh_list,
                               alf_list).alf_frame()
             _stage("sao_alf")
@@ -442,3 +817,448 @@ class VVCDecoder(_ref.VVCDecoder):
         else:
             pixel_stages()
         return outputs
+
+    def _mc_row_needs(self, tabs, sps, pps):
+        """Per-CTU-row max referenced luma row (exclusive) for inter MC:
+        the vectorized analogue of the reference's per-CU max-ref-y
+        (cu_get_max_y, vvc_ctu.c:2327), with a conservative margin.
+
+        MARGIN derivation (worst read row past `bottom + (mvy >> 4)`,
+        where bottom is the 4x4's exclusive bottom and mvy>>4 floors the
+        1/16-pel vertical MV to int-pel):
+          * 8-tap luma interp: taps reach +4 past the int sample row of
+            the block's last row -> +3;
+          * 4:2:0 chroma 4-tap: +2 chroma rows = +4 luma, plus the
+            half-pel floor -> +5;
+          * DMVR: +-2 int-pel refinement on top of the stored (unrefined)
+            MV, then the final 8-tap / chroma fetch -> +7 worst
+            (2 + chroma 5);
+          * BDOF / PROF: +1 sample ring on the (possibly refined)
+            prediction -> dominated by the DMVR chroma bound.
+        Worst case +7; MARGIN = 12 keeps slack.
+
+        GPM hazard: a GPM block computes BOTH parts' whole-block
+        predictions (blended), but the 4x4 grid stores each part's MV
+        only in its own region (ff_vvc_set_mvf storage) — a stored MV's
+        true reach is the BLOCK bottom, not the storing 4x4's bottom.
+        GPM blocks never span CTU rows, so on GPM-capable frames the
+        per-4x4 bottom is replaced by its CTU row's bottom (pinned by
+        tests/test_pipeline.py::test_mc_row_needs_gpm)."""
+        MARGIN = 12
+        pf = tabs.mvf_pf
+        mvy = tabs.mvf_mv[:, :, :, 1] >> 4        # [2, h4, w4] int-pel
+        h4 = pf.shape[0]
+        ctb4 = sps.ctb_size_y >> 2
+        if sps.r.sps_gpm_enabled_flag:
+            rows4 = np.arange(h4, dtype=np.int64)
+            bottom = ((rows4 // ctb4 + 1) * sps.ctb_size_y)[:, None]
+        else:
+            bottom = (np.arange(h4, dtype=np.int64)[:, None] + 1) * 4
+        reach = np.where((pf & 1) != 0, bottom + mvy[0] + MARGIN, 0)
+        reach = np.maximum(
+            reach, np.where((pf & 2) != 0, bottom + mvy[1] + MARGIN, 0))
+        return [min(pps.height,
+                    int(reach[r * ctb4:(r + 1) * ctb4].max(initial=0)))
+                for r in range(pps.ctb_height)]
+
+    def _pixel_stages_rows(self, frame, sps, pps, tabs, fb, recon_jobs,
+                           lmcs, sh_list, alf_list):
+        """Row-granular pixel pipeline: recon/LMCS/deblock-V/deblock-H/
+        SAO/ALF roll down the frame one CTB row at a time with the stage
+        lags the filter halos require, publishing per-row progress so a
+        consumer frame's inter MC can start before this frame finishes
+        (host analogue of the reference's row-progress listeners,
+        vvc_thread.c:281-296 / vvc_refs.c:532-565).  Bit-exact with the
+        whole-frame passes: H(r) needs V(r+1) (its bottom edges read the
+        next row's top taps) and finalizes deblock for row r-1 (its top
+        edges write up the halo); SAO(r) then runs after H(r+1) on a
+        progressively-snapshotted pre buffer, and ALF(r) one row behind
+        SAO (its CC-ALF taps read one luma row past the CTB).  Returns
+        False (state untouched) when a stage can't run row-sliced."""
+        from .deblock import Deblocker
+        from .native.sao import SaoRowPass
+        from .native.alf import AlfRowPass
+        if not recon_jobs or any(rec.native_recon is None
+                                 for rec, _ in recon_jobs):
+            return False
+        db = Deblocker(sps, pps, tabs, fb)
+        db.slice_rpls = frame.slice_rpls
+        if not db.frame_ctx():
+            return False
+        sao = None
+        if tabs.sao_type.any():
+            sao = SaoRowPass(sps, pps, tabs, fb)
+            if not sao.eligible:
+                return False
+        alf = None
+        if sps.r.sps_alf_enabled_flag:
+            alf = AlfRowPass(sps, pps, tabs, fb, sh_list, alf_list)
+            if alf.needed and not alf.eligible:
+                return False
+            if not alf.needed:
+                alf = None
+
+        R = pps.ctb_height
+        ctb = sps.ctb_size_y
+        H = pps.height
+        y0 = [min(r * ctb, H) for r in range(R + 1)]
+        rows = [[] for _ in range(R)]
+        lrows = [[] for _ in range(R)] if lmcs is not None else None
+        for rec, ctus in recon_jobs:
+            for t in ctus:
+                rows[t[2]].append((rec, t))
+                if lrows is not None and rec.lmcs_used:
+                    lrows[t[2]].append(t)
+        mx = (1 << sps.bit_depth) - 1
+
+        def recon_row(r):
+            items = rows[r]
+            i = 0
+            while i < len(items):
+                rec = items[i][0]
+                j = i
+                while j < len(items) and items[j][0] is rec:
+                    j += 1
+                rec.native_recon.reconstruct_ctus(
+                    [t for _, t in items[i:j]])
+                i = j
+
+        def lmcs_row(r):
+            # LMCS inverse lags recon one row: row r+1's intra prediction
+            # reads row r's MAPPED-domain bottom samples (spec 8.7.5.2 —
+            # inverse mapping is a picture-reconstruction stage, after
+            # all intra neighbour reads)
+            if lrows is not None:
+                for rs, rx, ry in lrows[r]:
+                    x0 = rx * ctb
+                    blk = fb.planes[0][y0[ry]:y0[ry + 1],
+                                       x0:min(x0 + ctb, pps.width)]
+                    blk[:] = lmcs.inv_lut[blk]
+
+        def sao_row(k):
+            if sao is None:
+                return
+            sao.fill_pre(y0[k], min(y0[k + 1] + 1, H))
+            sao.run_rows(k, k + 1)
+
+        def alf_prep(k):
+            if alf is not None:
+                alf.fill_pre(y0[k], y0[k + 1])
+
+        def alf_row(k):
+            if alf is not None:
+                alf.run_rows(k, k + 1)
+            frame.publish_rows(y0[k + 1] if k + 1 < R else H)
+
+        # schedule: recon(t) | V(t-1) | H(t-2) | SAO(t-3) | ALF(t-4) —
+        # V lags recon one row (intra prediction of row t reads row t-1's
+        # UNFILTERED bottom samples), H lags V one row (its bottom edges
+        # read the next row's top taps post-V), SAO one more (row final
+        # only after H of the row below writes up the halo), ALF one more
+        # (CC-ALF reads one luma row past the CTB, post-SAO).
+        for t in range(R + 4):
+            if t < R:
+                recon_row(t)
+            if 1 <= t <= R:
+                lmcs_row(t - 1)
+                db.deblock_rows(True, t - 1, t)        # V(t-1)
+            if 2 <= t <= R + 1:
+                db.deblock_rows(False, t - 2, t - 1)   # H(t-2)
+            if 3 <= t <= R + 2:
+                sao_row(t - 3)
+                alf_prep(t - 3)
+            if 4 <= t <= R + 3:
+                alf_row(t - 4)
+        return True
+
+    def _deferred_residuals(self, recon_jobs, fb):
+        """Mesh mode: when every CU of an inter frame is inter-predicted
+        (no intra/CIIP — those recon with the sequential neighbour walk)
+        and every job has the native record walk, produce whole-frame
+        residual planes (native residual-only mode) for the sharded
+        clip(pred + residual) pass at mesh drain.  Returns the per-plane
+        int32 residual list, or None when ineligible."""
+        from .ctu import MODE_INTRA
+        if not recon_jobs:
+            return None
+        tabs = recon_jobs[0][0].tabs
+        for rec, _ in recon_jobs:
+            if rec.native_recon is None:
+                return None
+        if (tabs.cpm[0] == MODE_INTRA).any() or \
+                (tabs.cpm[1] == MODE_INTRA).any() or tabs.mvf_ciip.any():
+            return None
+        res = [np.zeros(p.shape, np.int32) for p in fb.planes]
+        for rec, ctus in recon_jobs:
+            rec.native_recon.residual_ctus(ctus, res)
+        return res
+
+    def _check_picture_hash(self, frame, dph):
+        """Verify decoded planes against a decoded-picture-hash SEI
+        (payload type 132, H.274).  MD5 only — each sample little-endian
+        (bitDepth+7)//8 bytes, raster order, over the full (pre-crop)
+        decoded picture."""
+        hash_type, single, hashes = dph
+        if hash_type != 0:          # CRC/checksum: not verified
+            return
+        import hashlib
+        bd = frame.buffer.sps.bit_depth   # not self.sps: may run on the
+        # pixel worker while a later frame's parse re-activates params
+        planes = frame.buffer.planes[:1] if single else frame.buffer.planes
+        for c, (p, want) in enumerate(zip(planes, hashes)):
+            data = (p.astype(np.uint8) if bd == 8 else
+                    p.astype("<u2")).tobytes()
+            got = hashlib.md5(data).digest()
+            if got != want:
+                raise ValueError(
+                    f"decoded picture hash mismatch (poc={frame.poc}, "
+                    f"component={c}): {got.hex()} != {want.hex()}")
+
+    def _join_pixels(self):
+        """Wait for every queued pixel-stage job (frame pipeline)."""
+        futs, self._pix_futures = self._pix_futures, []
+        for fut in futs:
+            fut.result()
+
+    def _trim_pixels(self, depth):
+        """Block until at most `depth` pixel-stage jobs remain queued."""
+        while len(self._pix_futures) > depth:
+            self._pix_futures.pop(0).result()
+
+    def _entry_point_offsets(self, nal, sh_r, sh_end_bits):
+        """Byte ranges of each entry point within nal.rbsp (EPB-adjusted;
+        reference vvcdec.c:434-490)."""
+        start = sh_end_bits // 8
+        n_eps = sh_r.num_entry_points + 1
+        if n_eps == 1:
+            return [(start, len(nal.rbsp))]
+        # offsets are in pre-EPB-removal (coded) bytes; each skipped-byte
+        # position recorded by remove_epb shortens the rbsp advance by one
+        # (reference vvcdec.c:434-445)
+        skipped = nal.skipped
+        ranges = []
+        pos = start
+        for i in range(sh_r.num_entry_points):
+            off = sh_r.sh_entry_point_offset_minus1[i] + 1
+            nskip = sum(1 for s in skipped if pos < s <= pos + off)
+            nxt = pos + off - nskip
+            ranges.append((pos, nxt))
+            pos = nxt
+        ranges.append((pos, len(nal.rbsp)))
+        return ranges
+
+    def _parse_slice(self, nal, sh, sh_end_bits, tabs, fb, slice_idx,
+                     rpl=None, poc=0, collocated=None,
+                     native_recon_ok=False):
+        """CABAC-parse one slice; returns recon jobs [(Reconstructor,
+        [(rs, rx, ry), ...])] to run after the (optional) device itx pass."""
+        sps, pps = self.sps, self.pps
+        eps = self._entry_point_offsets(nal, sh.r, sh_end_bits)
+        ctu_addrs = sh.ctu_addrs
+        ctu_index = {rs: i for i, rs in enumerate(ctu_addrs)}
+        # partition CTUs across entry points (tiles / WPP rows)
+        ep_ctus = self._partition_ctus(ctu_addrs, len(eps))
+        jobs = []
+        engine_cls = NativeCabacDecoder if (self.config.native_cabac and
+                                            load_lib() is not None) \
+            else CabacDecoder
+        wpp = bool(sps.r.sps_entropy_coding_sync_enabled_flag)
+        wpp_states = None  # CABAC state after first CTU of the row above
+        # tile entry points are CABAC/StatCoeff-independent (reinit at
+        # every tile start): parse them on parse_workers threads.  WPP
+        # rows hand CABAC state down and stay sequential.
+        from .threads import resolve as _resolve
+        par_eps = (not wpp and len(eps) > 1 and
+                   _resolve(self.config.parse_workers) > 1)
+        pending = []     # deferred (tree, coder, items, tmpl) per EP
+        for ep_idx, (ep_range, ctus) in enumerate(zip(eps, ep_ctus)):
+            engine = engine_cls(nal.rbsp, ep_range[0] * 8)
+            coder = CtuCoder(engine, sps, pps, sh, tabs)
+            coder.rpl = rpl
+            coder.poc = poc
+            coder.collocated_ref = collocated
+            self._set_alf_counts(coder, sh)
+            if self.config.native_parse:
+                from .native.parse import make_native_tree
+                coder.native_tree = make_native_tree(coder)
+                # keep_records: zero-copy native recon (I slices) / native
+                # inter MC + recon (P/B; gated on RPL compatibility)
+                if coder.native_tree is not None and native_recon_ok:
+                    if sh.slice_type == SLICE_I:
+                        from .native.recon import load_lib as recon_lib
+                        coder.native_tree.keep_records = \
+                            recon_lib() is not None
+                    else:
+                        from .native.recon import native_inter_ok
+                        coder.native_tree.keep_records = \
+                            native_inter_ok(coder, fb)
+            engine.set_states(None)
+            rec = Reconstructor(sps, pps, tabs, fb, coder)
+            rec.ph_r = sh.ph
+            rec.dep_quant = sh.r.sh_dep_quant_used_flag
+            job_ctus = []
+            if coder.native_tree is not None and \
+                    coder.native_tree.keep_records and \
+                    os.environ.get("FFVVC_BATCH_PARSE", "1") != "0":
+                # batched whole-entry-point parse: all per-CTU work
+                # (SAO/ALF params, tree, terminate bits, reinits) in one C
+                # call (native/vvc_parse.c parse_ctus)
+                from .native.parse import parse_entrypoint
+                from .cabac.engine import CTX
+                if getattr(self, "_np_wpp_buf", None) is None:
+                    self._np_wpp_buf = np.zeros((4, CTX.NUM), np.int32)
+                wpp_buf = self._np_wpp_buf
+                qp = max(0, min(63, sh.slice_qp_y))
+                from .cabac.engine import make_states_np
+                tmpl = make_states_np(qp, sh.cabac_init_type)
+                items = []
+                for i, rs in enumerate(ctus):
+                    rx = rs % pps.ctb_width
+                    ry = rs // pps.ctb_width
+                    ctu_idx = ctu_index[rs]
+                    first_in_tile = rx == pps.ctb_to_col_bd[rx] and \
+                        ry == pps.ctb_to_row_bd[ry]
+                    reinit = realign = wpp_inherit = 0
+                    if ctu_idx == 0 or first_in_tile:
+                        if i == 0:
+                            engine.set_states(make_states(
+                                qp, sh.cabac_init_type))
+                            coder.init_stat_coeff()
+                        else:
+                            realign = int(len(eps) == 1)
+                            reinit = 1
+                    elif wpp and i == 0:
+                        engine.set_states([wpp_buf[k].copy()
+                                           for k in range(4)])
+                        coder.init_stat_coeff()
+                    elif wpp and rx == pps.ctb_to_col_bd[rx]:
+                        # WPP row start inside the same entry point (legal
+                        # when sps_entry_point_offsets_present_flag == 0):
+                        # byte-realign past the row's terminate bit, then
+                        # inherit the row-above contexts from wpp_buf
+                        realign = 1
+                        wpp_inherit = 1
+                    wpp_save = int(wpp and rx == pps.ctb_to_col_bd[rx])
+                    term = 0
+                    if rx == pps.ctb_to_col_bd[rx + 1] - 1:
+                        if ctu_idx == len(ctu_addrs) - 1 or \
+                                ry == pps.ctb_to_row_bd[ry + 1] - 1 or wpp:
+                            term = 1
+                    items.append((ctu_idx, rs, rx, ry, reinit, realign,
+                                  wpp_save, term, slice_idx, wpp_inherit))
+                    job_ctus.append((rs, rx, ry))
+                # per-CTU deblock params are slice-constant: prefill
+                tabs.deblock_disabled[ctus] = int(sh.lf_disabled)
+                tabs.deblock_beta[ctus] = sh.beta_offset
+                tabs.deblock_tc[ctus] = sh.tc_offset
+                if par_eps:
+                    pending.append((coder, items, tmpl, wpp_buf, rec,
+                                    job_ctus))
+                else:
+                    parse_entrypoint(coder.native_tree, coder, items, tmpl,
+                                     wpp_buf, job_ctus)
+                    from .native.recon import make_native_recon
+                    rec.native_recon = make_native_recon(coder, fb, sh.ph)
+                jobs.append((rec, job_ctus))
+                continue
+            for i, rs in enumerate(ctus):
+                rx = rs % pps.ctb_width
+                ry = rs // pps.ctb_width
+                ctu_idx = ctu_index[rs]  # index within slice
+                # CABAC (re)init at slice/tile starts
+                first_in_tile = rx == pps.ctb_to_col_bd[rx] and \
+                    ry == pps.ctb_to_row_bd[ry]
+                if ctu_idx == 0 or first_in_tile:
+                    if len(eps) == 1 and ctu_idx != 0:
+                        # re-align to byte boundary within same entry point
+                        engine2 = engine_cls(
+                            nal.rbsp, engine.byte_pos_after_terminate() * 8)
+                        engine = engine2
+                        coder.e = engine
+                    qp = max(0, min(63, sh.slice_qp_y))
+                    engine.set_states(make_states(qp, sh.cabac_init_type))
+                    coder.init_stat_coeff()
+                elif wpp and i == 0:
+                    # WPP: inherit CABAC state saved after the first CTU of
+                    # the row above (schedule_next_parse, vvc_thread.c:261)
+                    engine.set_states(tuple(list(x) for x in wpp_states))
+                    coder.init_stat_coeff()
+                elif wpp and rx == pps.ctb_to_col_bd[rx]:
+                    # WPP row start inside one entry point (offsets not
+                    # signalled): realign past the row terminate, inherit
+                    # the row-above contexts
+                    engine2 = engine_cls(
+                        nal.rbsp, engine.byte_pos_after_terminate() * 8)
+                    engine = engine2
+                    coder.e = engine
+                    engine.set_states(tuple(list(x) for x in wpp_states))
+                    coder.init_stat_coeff()
+                coder.coding_tree_unit(ctu_idx, rs, rx, ry, len(ctu_addrs),
+                                       slice_idx)
+                if wpp and rx == pps.ctb_to_col_bd[rx]:
+                    wpp_states = tuple(list(x) for x in engine.states)
+                job_ctus.append((rs, rx, ry))
+            if coder.native_tree is not None and \
+                    coder.native_tree.keep_records:
+                from .native.recon import make_native_recon
+                rec.native_recon = make_native_recon(coder, fb, sh.ph)
+            jobs.append((rec, job_ctus))
+        if pending:
+            # threaded tile-entry-point parse (the C call releases the GIL;
+            # the arena pool is lock-guarded, tab writes are disjoint)
+            from .native.parse import parse_entrypoint
+            from .native.recon import make_native_recon
+            from .threads import run_parallel, resolve
+            nt = min(resolve(self.config.parse_workers), len(pending))
+            run_parallel(nt, [
+                (lambda c=c, it=it, t=t, w=w, jc=jc: parse_entrypoint(
+                    c.native_tree, c, it, t, w, jc))
+                for c, it, t, w, _r, jc in pending])
+            for c, _it, _t, _w, rec, _jc in pending:
+                rec.native_recon = make_native_recon(c, fb, sh.ph)
+        return jobs
+
+    def _partition_ctus(self, ctu_addrs, n_eps):
+        """Split a slice's CTUs into entry-point groups (tiles or WPP rows)."""
+        if n_eps == 1:
+            return [ctu_addrs]
+        pps = self.pps
+        sps = self.sps
+        groups = [[]]
+        prev = None
+        for rs in ctu_addrs:
+            rx = rs % pps.ctb_width
+            ry = rs // pps.ctb_width
+            if prev is not None:
+                new_tile = (rx == pps.ctb_to_col_bd[rx] and
+                            ry == pps.ctb_to_row_bd[ry] and
+                            (pps.ctb_to_col_bd[rx] != pps.ctb_to_col_bd[prev % pps.ctb_width] or
+                             pps.ctb_to_row_bd[ry] != pps.ctb_to_row_bd[prev // pps.ctb_width]))
+                new_wpp_row = sps.r.sps_entropy_coding_sync_enabled_flag and \
+                    ry != prev // pps.ctb_width
+                if new_tile or new_wpp_row:
+                    groups.append([])
+            groups[-1].append(rs)
+            prev = rs
+        assert len(groups) == n_eps, (len(groups), n_eps)
+        return groups
+
+    def _set_alf_counts(self, coder, sh):
+        ps = self.ps
+        r = sh.r
+        if r.sh_alf_enabled_flag and (r.sh_alf_cb_enabled_flag or
+                                      r.sh_alf_cr_enabled_flag):
+            aps = ps.aps_alf.get(r.sh_alf_aps_id_chroma)
+            if aps is not None:
+                coder.num_chroma_alt_filters = \
+                    aps.alf_chroma_num_alt_filters_minus1 + 1
+        ncc = [0, 0]
+        if r.sh_alf_cc_cb_enabled_flag:
+            aps = ps.aps_alf.get(r.sh_alf_cc_cb_aps_id)
+            if aps is not None:
+                ncc[0] = aps.alf_cc_cb_filters_signalled_minus1 + 1
+        if r.sh_alf_cc_cr_enabled_flag:
+            aps = ps.aps_alf.get(r.sh_alf_cc_cr_aps_id)
+            if aps is not None:
+                ncc[1] = aps.alf_cc_cr_filters_signalled_minus1 + 1
+        coder.num_cc_filters = tuple(ncc)

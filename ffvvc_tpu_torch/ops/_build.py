@@ -1,27 +1,25 @@
 """Build and load the port's CUDA kernels (csrc/filters.cu).
 
 nvcc compiles the source into a shared library with a plain C interface
-(no PyTorch headers: seconds, not minutes), keyed by a hash of the source
-so an edited kernel rebuilds and an unchanged one loads the existing
-library:
+(no PyTorch headers: seconds, not minutes), by the scheme the host half's C
+libraries use (`native/_build.py`: named by a hash of source and flags,
+written to a temporary name and moved into place):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o ffvvc_tpu_torch/build/libffvvc_filters-<hash>.so
 
-The library is loaded with ctypes, every argtype declared, in the same way
-`ffvvc_tpu/native/*.py` load their gcc-built C libraries.  A missing nvcc or
-a failed build raises RuntimeError; nothing falls back to the plain
+The library is loaded with ctypes, every argtype declared.  A missing nvcc
+or a failed build raises RuntimeError; nothing falls back to the plain
 PyTorch versions.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
 import threading
-import time
+
+from ..native import _build as _shared
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "filters.cu")
@@ -32,10 +30,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # launcher -> argtypes (pointers and the stream as c_void_p, ints as c_int)
 _SIGNATURES = {
-    "ffvvc_sao": [_P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P],
-    "ffvvc_alf": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                  _I, _P, _P],
-    "ffvvc_cc": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+    # n, ptrs [3n], dims [6n], shift, pix_max, stream
+    "ffvvc_sao": [_I, _P, _P, _I, _I, _P],
+    # src, out, H, W, ci, ti, ctb_set, cw, cf, cl, log2_cs, pix_max, stream
+    "ffvvc_alf_luma": [_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I, _P],
+    # n, ptrs [5n], H, W, cw, log2_cs_v, log2_cs_h, pix_max, stream
+    "ffvvc_alf_chroma": [_I, _P, _I, _I, _I, _I, _I, _I, _P],
+    # dst, luma, H, W, rowsel, skip, cf, cw, log2_cs_v, log2_cs_h, hs, half,
+    # pix_max, Hc, Wc, out, stream
+    "ffvvc_cc": [_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                  _P, _P],
 }
 
@@ -57,39 +60,32 @@ def find_nvcc():
 
 
 def library_path():
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR,
-                        f"libffvvc_filters-{digest.hexdigest()[:16]}.so")
+    return _shared.library_path("ffvvc_filters", [SOURCE], [], NVCC_FLAGS,
+                                BUILD_DIR)
 
 
-def _build(out):
+def _build():
+    """Path of the kernel library, compiled first when it does not exist."""
+    if os.path.exists(library_path()):
+        return library_path()
     nvcc = find_nvcc()
     if nvcc is None:
         raise RuntimeError(
             "cannot build the CUDA kernels: nvcc not found (looked in "
             "$CUDA_HOME/bin, PATH and /usr/local/cuda/bin)")
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    r = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, SOURCE],
-                       capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}) building "
-                           f"{SOURCE}:\n{r.stderr}{r.stdout}")
-    os.replace(tmp, out)
+    return _shared.build_shared(nvcc, NVCC_FLAGS, [SOURCE], [],
+                                "ffvvc_filters", BUILD_DIR)
 
 
 def lib():
     """The loaded kernel library, built first if its source changed."""
     global _lib, build_seconds
+    if _lib is not None:        # per-launch path: no lock once loaded
+        return _lib
     with _lock:
         if _lib is None:
-            path = library_path()
-            if not os.path.exists(path):
-                t0 = time.monotonic()
-                _build(path)
-                build_seconds = time.monotonic() - t0
-            so = ctypes.CDLL(path)
+            so = ctypes.CDLL(_build())
+            build_seconds = _shared.build_seconds.get("ffvvc_filters", 0.0)
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(so, name)
                 fn.argtypes = argtypes

@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ffvvc_tpu.deblock import Deblocker
+from ..deblock import Deblocker
 
 # padded (coef, tc_weight) rows indexed by (ml - 3) // 2  ->  ml in {3,5,7}
 _COEF = np.array([[53, 32, 11, 0, 0, 0, 0],

@@ -16,9 +16,11 @@ the same accounting as the JAX package.
 
 SAO, ALF and CC-ALF run as hand-written CUDA kernels (`sao_device`,
 `alf_device`; csrc/filters.cu) when the tensors are on CUDA, and as their
-plain PyTorch twins when they are on the CPU.  LMCS, deblocking and the
-ALF classification are plain PyTorch here; their hand kernels are
-ROADMAP.md queue 1 item 6.
+plain PyTorch versions when they are on the CPU; they take and return the
+16-bit wire samples.  LMCS, deblocking and the ALF classification are plain
+PyTorch here and compute in int32: a plane is widened when the first of
+them touches it and narrowed once at the hand-over to SAO.  Their hand
+kernels are ROADMAP.md queue 1 item 6.
 """
 from __future__ import annotations
 
@@ -27,17 +29,17 @@ import time
 import numpy as np
 import torch
 
-from ffvvc_tpu.alf import (ALF_BORDER_LUMA, ALF_BORDER_CHROMA,
-                           ALF_VB_POS_ABOVE_LUMA, ALF_VB_POS_ABOVE_CHROMA,
-                           _TRANSPOSE_IDX, _ARG_VAR)
-from ffvvc_tpu.sao import SaoFilter, SAO_BAND, _EDGE_IDX
-from ffvvc_tpu.ops import data as D
+from ..alf import (ALF_BORDER_LUMA, ALF_BORDER_CHROMA,
+                   ALF_VB_POS_ABOVE_LUMA, ALF_VB_POS_ABOVE_CHROMA, _ARG_VAR)
+from ..sao import SaoFilter, SAO_BAND, _EDGE_IDX
+from . import data as D
 
-from .alf_device import (_CHROMA_SLOT, _vb_row_offsets, LUMA_SLOTS,
-                         CHROMA_SLOTS, alf_filter_plane, cc_filter)
+from .alf_device import (_CHROMA_SLOT, _vb_row_offsets, alf_filter_chroma,
+                         alf_filter_luma, cc_filter)
 from .deblock_device import (rasterize_deblock, _pad_pow2, luma_math,
                              chroma_math)
-from .sao_device import _log2, expand_ctb, pad_edge, sao_apply
+from .sao_device import (_PARAM_ROWS, expand_ctb, pack_params, pad_edge,
+                         sao_apply)
 
 # transfer accounting (bytes) and host-clock seconds of the two halves of
 # fused_frame_filters: building the parameters on the host (build_s) and
@@ -46,10 +48,8 @@ from .sao_device import _log2, expand_ctb, pad_edge, sao_apply
 stats = {"up_bytes": 0, "down_bytes": 0, "frames": 0, "build_s": 0.0,
          "device_s": 0.0}
 
-# parameter arrays the chain uses as indices: int64 on the device
-_INDEX_KEYS = frozenset({"cls_r0", "cls_r3", "alf0_row", "alfc_row",
-                         "cc_row", "alf0_set", "alf1_set", "alf2_set",
-                         "cc1_set", "cc2_set"})
+# parameter arrays the chain uses as torch indices: int64 on the device
+_INDEX_KEYS = frozenset({"cls_r0", "cls_r3", "cc_row", "cc1_set", "cc2_set"})
 
 
 def reset_stats():
@@ -64,11 +64,19 @@ def _up(a):
     return a
 
 
-def to_device(arrs, device):
+def to_device(meta, arrs, device):
     """The chain's per-frame parameter dict (the numpy arrays the JAX
     `_chain` receives) as tensors on `device`: uint16 planes travel as
-    int16 (same bytes), index arrays become int64 after the upload."""
+    int16 (same bytes), the nine SAO arrays of a plane as one packed
+    `sao{c}_prm` (same bytes, one copy), index arrays become int64 after the
+    upload, and the luma ALF set of each 4x4 block is reduced to the set of
+    each CTB (`alf0_ctb_set`), which is what the kernel takes."""
     dev = torch.device(device)
+    arrs = dict(arrs)
+    for c in range(3):
+        if f"sao{c}_typ" in arrs:
+            arrs[f"sao{c}_prm"] = pack_params(
+                {k: arrs.pop(f"sao{c}_{k}") for k in _PARAM_ROWS})
     out = {}
     for k, a in arrs.items():
         # torch.from_numpy shares memory: copy read-only arrays (e.g. views
@@ -78,6 +86,10 @@ def to_device(arrs, device):
             a = a.view(np.int16)
         t = torch.from_numpy(a).to(dev)
         out[k] = t.long() if k in _INDEX_KEYS else t
+    if "alf0_set" in out:
+        # blocks inherit their CTB's set, so every (cs / 4)-th is the CTB's
+        q = dict(meta)["cs"] // 4
+        out["alf0_ctb_set"] = out.pop("alf0_set")[::q, ::q].contiguous()
     return out
 
 
@@ -178,16 +190,22 @@ def chain(meta, a):
     pix_max = (1 << bd) - 1
     cs = m["cs"]
     nc = m["nc"]
-    planes = [a[f"p{c}"].to(torch.int32) for c in range(nc)]
+    # int16 as uploaded; a plain-PyTorch stage widens the plane it touches
+    planes = [a[f"p{c}"] for c in range(nc)]
+
+    def wide(c):
+        if planes[c].dtype != torch.int32:
+            planes[c] = planes[c].to(torch.int32)
+        return planes[c]
     # --- residual add (deferred inter recon) ---
     if m["has_res"]:
         for c in range(nc):
             planes[c] = torch.clamp(
-                planes[c] + a[f"res{c}"].to(torch.int32), 0, pix_max)
+                wide(c) + a[f"res{c}"].to(torch.int32), 0, pix_max)
     # --- LMCS inverse (luma) ---
     if m["has_lmcs"]:
         H, W = planes[0].shape
-        planes[0] = lmcs_apply(planes[0], a["lmcs_lut"], a["lmcs_mask"],
+        planes[0] = lmcs_apply(wide(0), a["lmcs_lut"], a["lmcs_mask"],
                                cs, H, W)
     # --- deblock: V then H ---
     for d, vertical in ((0, True), (1, False)):
@@ -197,63 +215,50 @@ def chain(meta, a):
                 continue
             s = a[key].to(torch.int32)     # uploaded int16 (half traffic)
             math = luma_math if c == 0 else chroma_math
-            planes[c] = math(planes[c], *s.unbind(0), vertical, pix_max)
-    # --- SAO ---
-    shift = bd - 5
-    for c in range(nc):
-        if not m[f"sao{c}"]:
-            continue
-        hs = m["hs"] if c else 0
-        vs = m["vs"] if c else 0
-        planes[c] = sao_apply(
-            planes[c],
-            {k: a[f"sao{c}_{k}"] for k in
-             ("typ", "m1", "offs", "kl", "kr", "kt", "kb", "ax", "bx")},
-            cs >> vs, cs >> hs, shift, pix_max)
+            planes[c] = math(wide(c), *s.unbind(0), vertical, pix_max)
+    # --- hand-over: 16-bit samples from here to the end ---
+    planes = [p if p.dtype == torch.int16 else p.to(torch.int16)
+              for p in planes]
+    # --- SAO: every plane that has it, in one call ---
+    on = [c for c in range(nc) if m[f"sao{c}"]]
+    if on:
+        sizes = [(cs >> (m["vs"] if c else 0), cs >> (m["hs"] if c else 0))
+                 for c in on]
+        done = sao_apply([planes[c] for c in on],
+                         [a[f"sao{c}_prm"] for c in on], sizes, bd - 5,
+                         pix_max)
+        for c, p in zip(on, done):
+            planes[c] = p
     post_sao = list(planes)
     # --- ALF luma ---
-    P3l = None
     if m["alf0"]:
         y = post_sao[0]
         H, W = y.shape
-        P3l = pad_edge(y, ALF_BORDER_LUMA)
-        ci, ti = alf_classify(P3l, a["cls_r0"], a["cls_r3"],
-                              a["blk_start1"], a["blk_end3"], a["blk_ac"],
-                              H // 4, W // 4, bd)
-        setidx = a["alf0_set"]                       # [nby, nbx]
-        perm = torch.tensor(_TRANSPOSE_IDX, device=y.device)[ti.long()]
-        cfb = torch.gather(a["alf0_cf"][setidx, ci.long()], 2, perm)
-        clb = torch.gather(a["alf0_cl"][setidx, ci.long()], 2, perm)
-        planes[0] = alf_filter_plane(y, P3l, a["alf0_row"], a["alf0_vb"],
-                                     cfb.contiguous(), clb.contiguous(),
-                                     2, 2, LUMA_SLOTS, ALF_BORDER_LUMA,
-                                     pix_max)
-    # --- ALF chroma + CC-ALF ---
-    half = 1 << (bd - 1)
-    for c in (1, 2):
-        if nc == 1:
-            break
-        out = planes[c]
+        ci, ti = alf_classify(pad_edge(y, ALF_BORDER_LUMA).to(torch.int32),
+                              a["cls_r0"], a["cls_r3"], a["blk_start1"],
+                              a["blk_end3"], a["blk_ac"], H // 4, W // 4, bd)
+        planes[0] = alf_filter_luma(y, ci, ti, a["alf0_ctb_set"],
+                                    a["alf0_cf"], a["alf0_cl"], cs, pix_max)
+    # --- ALF chroma (both planes in one call) + CC-ALF ---
+    if nc == 3:
         csv = cs >> m["vs"]
         csh = cs >> m["hs"]
-        if m[f"alf{c}"]:
-            src = post_sao[c]
-            sidx = a[f"alf{c}_set"]                  # [ch, cw]
-            out = alf_filter_plane(
-                src, pad_edge(src, ALF_BORDER_CHROMA), a["alfc_row"],
-                a["alfc_vb"], a[f"alf{c}_cf"][sidx].contiguous(),
-                a[f"alf{c}_cl"][sidx].contiguous(), _log2(csv, "cs_v"),
-                _log2(csh, "cs_h"), CHROMA_SLOTS, ALF_BORDER_CHROMA,
-                pix_max)
-        if m[f"cc{c}"]:
-            if P3l is None:
-                P3l = pad_edge(post_sao[0], ALF_BORDER_LUMA)
-            ccb = a[f"cc{c}_cf"][a[f"cc{c}_set"]]    # [ch, cw, 7]
-            out = cc_filter(out, P3l, a["cc_row"], a["cc_skip"],
-                            ccb.contiguous(), csv, csh, m["hs"], half,
-                            pix_max)
-        planes[c] = out
-    return tuple(p.to(torch.int16) for p in planes)
+        on = [c for c in (1, 2) if m[f"alf{c}"]]
+        if on:
+            done = alf_filter_chroma(
+                [post_sao[c] for c in on], [a[f"alf{c}_set"] for c in on],
+                [a[f"alf{c}_cf"] for c in on], [a[f"alf{c}_cl"] for c in on],
+                csv, csh, pix_max)
+            for c, p in zip(on, done):
+                planes[c] = p
+        half = 1 << (bd - 1)
+        for c in (1, 2):
+            if m[f"cc{c}"]:
+                ccb = a[f"cc{c}_cf"][a[f"cc{c}_set"]]    # [ch, cw, 7]
+                planes[c] = cc_filter(planes[c], post_sao[0], a["cc_row"],
+                                      a["cc_skip"], ccb.contiguous(), csv,
+                                      csh, m["hs"], half, pix_max)
+    return tuple(planes)
 
 
 # ---------------------------------------------------------------------------
@@ -587,6 +592,10 @@ def fused_frame_filters(sps, pps, tabs, fb, sh_list, alf_list, lmcs,
             arrs["blk_start1"] = _up(s1)
             arrs["blk_end3"] = _up(e3)
             arrs["blk_ac"] = _up(ac)
+            # alf0_row/alf0_vb and alfc_row/alfc_vb keep the wire format
+            # (the byte counts equal the JAX package's); no stage reads
+            # them: the ALF kernels compute the virtual-boundary rows from
+            # the row number
             rowsel, vbsel = _alf_vb_arrays(H, cs, ALF_BORDER_LUMA,
                                            ALF_VB_POS_ABOVE_LUMA, True)
             arrs["alf0_row"] = _up(rowsel)
@@ -609,7 +618,7 @@ def fused_frame_filters(sps, pps, tabs, fb, sh_list, alf_list, lmcs,
                 meta["cc1"] = "cc1_set" in ap
                 meta["cc2"] = "cc2_set" in ap
     t1 = time.perf_counter()
-    out = chain(meta, to_device(arrs, device))
+    out = chain(meta, to_device(meta, arrs, device))
     res = [p.cpu().numpy() for p in out]    # synchronises with the device
     stats["build_s"] += t1 - t0
     stats["device_s"] += time.perf_counter() - t1

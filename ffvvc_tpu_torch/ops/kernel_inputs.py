@@ -8,19 +8,24 @@ from __future__ import annotations
 
 import numpy as np
 
-from ffvvc_tpu.alf import (ALF_BORDER_LUMA, ALF_BORDER_CHROMA,
-                           ALF_VB_POS_ABOVE_LUMA, ALF_VB_POS_ABOVE_CHROMA)
-
 from .alf_device import _CHROMA_SLOT
-from .fused_device import _alf_vb_arrays, _cc_arrays
+from .fused_device import _cc_arrays
+
+# filter sets in a seeded ALF table
+N_SETS = 5
 
 
 def _grid(n, size):
     return -(-n // size)
 
 
+def _samples(rng, shape, bd):
+    return rng.integers(0, 1 << bd, shape).astype(np.int16)
+
+
 def sao_inputs(rng, H, W, cs_v, cs_h, bd):
-    """(plane [H, W], per-CTB params) in `_sao_ctb_params` layout."""
+    """(plane int16 [H, W], per-CTB params) in `_sao_ctb_params` layout
+    (`sao_device.pack_params` packs them for the wrapper)."""
     ch, cw = _grid(H, cs_v), _grid(W, cs_h)
 
     def ints(lo, hi, shape=(ch, cw)):
@@ -33,39 +38,47 @@ def sao_inputs(rng, H, W, cs_v, cs_h, bd):
              ax=ints(0, 2),
              bx=rng.choice(np.array([cs_h - 1, cs_h, 1 << 30], np.int32),
                            (ch, cw)))
-    return ints(0, 1 << bd, (H, W)), p
+    return _samples(rng, (H, W), bd), p
 
 
-def alf_inputs(rng, H, W, cs_v, cs_h, bd, luma):
-    """ALF of one plane: (cur [H, W], rowsel [7, H], vbsel [H],
-    cf/cl [nby, nbx, 12], blk_log2_h, blk_log2_w) with 4x4 blocks for
-    luma and cs_v x cs_h CTBs for chroma; the slots chroma does not use
-    hold cf 0 and cl 1, as `_alf_ctb_params` builds them."""
-    border = ALF_BORDER_LUMA if luma else ALF_BORDER_CHROMA
-    above = ALF_VB_POS_ABOVE_LUMA if luma else ALF_VB_POS_ABOVE_CHROMA
-    rowsel, vbsel = _alf_vb_arrays(H, cs_v, border, above, luma)
-    l2h = 2 if luma else cs_v.bit_length() - 1
-    l2w = 2 if luma else cs_h.bit_length() - 1
-    shape = (_grid(H, 1 << l2h), _grid(W, 1 << l2w), 12)
+def _alf_tables(rng, shape, bd):
     cf = rng.integers(-128, 128, shape).astype(np.int32)
     clip_set = np.array([1 << bd, 1 << (bd - 3), 1 << (bd - 5),
                          1 << (bd - 7)], np.int32)
-    cl = clip_set[rng.integers(0, 4, shape)]
-    if not luma:
-        unused = np.ones(12, bool)
-        unused[list(_CHROMA_SLOT)] = False
-        cf[:, :, unused] = 0
-        cl[:, :, unused] = 1
-    cur = rng.integers(0, 1 << bd, (H, W)).astype(np.int32)
-    return cur, rowsel, vbsel, cf, cl, l2h, l2w
+    return cf, clip_set[rng.integers(0, 4, shape)]
+
+
+def alf_luma_inputs(rng, H, W, cs, bd):
+    """Luma ALF: (src int16 [H, W], ci, ti int32 [H / 4, W / 4], ctb_set
+    int32 [ch, cw], cf_tab, cl_tab int32 [N_SETS, 25, 12])."""
+    cf, cl = _alf_tables(rng, (N_SETS, 25, 12), bd)
+    blocks = (H // 4, W // 4)
+    ci = rng.integers(0, 25, blocks).astype(np.int32)
+    ti = rng.integers(0, 4, blocks).astype(np.int32)
+    ctb_set = rng.integers(0, N_SETS, (_grid(H, cs), _grid(W, cs)))
+    return (_samples(rng, (H, W), bd), ci, ti, ctb_set.astype(np.int32), cf,
+            cl)
+
+
+def alf_chroma_inputs(rng, H, W, cs_v, cs_h, bd):
+    """Chroma ALF of one plane: (src int16 [H, W], ctb_set int32 [ch, cw],
+    cf_tab, cl_tab int32 [N_SETS, 12]); the slots chroma does not use hold
+    cf 0 and cl 1, as `_alf_ctb_params` builds them."""
+    cf, cl = _alf_tables(rng, (N_SETS, 12), bd)
+    unused = np.ones(12, bool)
+    unused[list(_CHROMA_SLOT)] = False
+    cf[:, unused] = 0
+    cl[:, unused] = 1
+    ctb_set = rng.integers(0, N_SETS, (_grid(H, cs_v), _grid(W, cs_h)))
+    return _samples(rng, (H, W), bd), ctb_set.astype(np.int32), cf, cl
 
 
 def cc_inputs(rng, Hc, Wc, cs, hs, vs, bd):
-    """CC-ALF of one chroma plane: (dst [Hc, Wc], luma [Hc << vs,
-    Wc << hs], rowsel [4, Hc], skip [Hc], cf [ch, cw, 7])."""
+    """CC-ALF of one chroma plane: (dst int16 [Hc, Wc], luma int16
+    [Hc << vs, Wc << hs], rowsel [4, Hc], skip [Hc], cf [ch, cw, 7])."""
     rowsel, skip = _cc_arrays(Hc, cs, vs)
     shape = (_grid(Hc, cs >> vs), _grid(Wc, cs >> hs), 7)
     cf = rng.integers(-64, 65, shape).astype(np.int32)
-    dst = rng.integers(0, 1 << bd, (Hc, Wc)).astype(np.int32)
-    luma = rng.integers(0, 1 << bd, (Hc << vs, Wc << hs)).astype(np.int32)
+    dst = _samples(rng, (Hc, Wc), bd)
+    luma = _samples(rng, (Hc << vs, Wc << hs), bd)
     return dst, luma, rowsel, skip, cf

@@ -1,23 +1,30 @@
-"""SAO of the fused chain: the CUDA kernel wrapper and its plain twin.
+"""SAO of the fused chain: the CUDA kernel wrapper and its plain version.
 
 `sao_apply` replaces `ffvvc_tpu/ops/sao_device.py::_sao_pallas` as the
 fused chain runs it (`ffvvc_tpu/ops/fused_device.py::_sao_apply`): band
 offset or edge offset per CTB, clipped, with the frame-border samples of
-the keep map left as they are.  On a CUDA tensor it launches
-`sao_kernel` (csrc/filters.cu), which expands the per-CTB parameters
-itself; on a CPU tensor it runs `sao_apply_ref`, the same integer math in
-plain PyTorch.
+the keep map left as they are.  It takes all planes of a picture at once,
+as 16-bit samples.  On CUDA tensors it launches `sao_kernel`
+(csrc/filters.cu) once for all of them; the kernel expands the per-CTB
+parameters itself.  On CPU tensors it runs `sao_apply_ref`, the same integer
+math in plain PyTorch.
 """
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 
-from ffvvc_tpu.sao import SAO_BAND, SAO_EDGE
+from ..sao import SAO_BAND, SAO_EDGE
 
 from . import _build
 
-# per-CTB parameter rows of the kernel's packed [13, ch, cw] table
+# per-CTB parameter rows of the packed [13, ch, cw] table the kernel reads
+# (`pack_params`): offs takes five rows
 _PARAM_ROWS = ("typ", "m1", "offs", "kl", "kr", "kt", "kb", "ax", "bx")
+# the narrowest CTB the kernels' tiles are laid out for
+MIN_CTB = 16
 
 
 def expand_ctb(a, cs_v, cs_h, H, W):
@@ -38,6 +45,20 @@ def _log2(n, what):
     if n <= 0 or n & (n - 1):
         raise ValueError(f"{what} must be a power of two, got {n}")
     return n.bit_length() - 1
+
+
+def stream_of(t):
+    """The raw handle of PyTorch's current stream on t's device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def pack_params(p):
+    """The nine per-CTB arrays of `_sao_ctb_params` (numpy, [ch, cw] and
+    offs [5, ch, cw]) as the one int32 [13, ch, cw] array the wrapper
+    takes."""
+    ch, cw = p["typ"].shape
+    return np.concatenate([np.asarray(p[k], np.int32).reshape(-1, ch, cw)
+                           for k in _PARAM_ROWS])
 
 
 def sao_math(src_pad, typ, m1, offs, keep, shift, pix_max):
@@ -63,53 +84,72 @@ def sao_math(src_pad, typ, m1, offs, keep, shift, pix_max):
     return torch.where(keep, cen, out)
 
 
-def sao_apply_ref(plane, p, cs_v, cs_h, shift, pix_max):
-    """Plain PyTorch SAO of one plane (`fused_device._sao_apply`).
-    plane: int32 [H, W]; p: per-CTB int32 [ch, cw] tensors typ, m1, kl,
-    kr, kt, kb, ax, bx and offs [5, ch, cw]."""
+def _sao_plane_ref(plane, prm, cs_v, cs_h, shift, pix_max):
     H, W = plane.shape
 
     def px(a):
         return expand_ctb(a, cs_v, cs_h, H, W)
-    offs = torch.stack([px(p["offs"][k]) for k in range(5)])
+    typ, m1 = px(prm[0]), px(prm[1])
+    offs = torch.stack([px(prm[2 + k]) for k in range(5)])
+    kl, kr, kt, kb, ax, bx = (px(prm[7 + k]) for k in range(6))
     xs = torch.arange(W, dtype=torch.int32, device=plane.device)[None, :]
     ys = torch.arange(H, dtype=torch.int32, device=plane.device)[:, None]
     x_loc = xs & (cs_h - 1)
-    in_x = (x_loc >= px(p["ax"])) & (x_loc < px(p["bx"]))
-    keep = ((xs == 0) & (px(p["kl"]) != 0)) | \
-        ((xs == W - 1) & (px(p["kr"]) != 0)) | \
-        ((ys == 0) & (px(p["kt"]) != 0) & in_x) | \
-        ((ys == H - 1) & (px(p["kb"]) != 0) & in_x)
-    return sao_math(pad_edge(plane, 1), px(p["typ"]), px(p["m1"]), offs,
-                    keep, shift, pix_max)
+    in_x = (x_loc >= ax) & (x_loc < bx)
+    keep = ((xs == 0) & (kl != 0)) | ((xs == W - 1) & (kr != 0)) | \
+        ((ys == 0) & (kt != 0) & in_x) | ((ys == H - 1) & (kb != 0) & in_x)
+    out = sao_math(pad_edge(plane.to(torch.int32), 1), typ, m1, offs, keep,
+                   shift, pix_max)
+    return out.to(torch.int16)
 
 
-def sao_apply(plane, p, cs_v, cs_h, shift, pix_max):
-    """SAO of one plane: the CUDA kernel on a CUDA tensor, `sao_apply_ref`
-    on a CPU tensor.  Same arguments as `sao_apply_ref`; returns a new
-    int32 [H, W] tensor."""
-    if plane.device.type == "cpu":
-        return sao_apply_ref(plane, p, cs_v, cs_h, shift, pix_max)
-    if plane.device.type != "cuda":
-        raise ValueError(f"sao_apply: unsupported device {plane.device}")
-    H, W = plane.shape
-    ch, cw = p["typ"].shape
-    if plane.dtype != torch.int32 or not plane.is_contiguous():
-        raise ValueError("sao_apply: plane must be contiguous int32")
-    if ch * cs_v < H or cw * cs_h < W:
-        raise ValueError("sao_apply: CTB grid does not cover the plane")
-    prm = torch.cat([p[k].reshape(-1, ch, cw) for k in _PARAM_ROWS])
-    prm = prm.to(device=plane.device, dtype=torch.int32).contiguous()
-    if prm.shape[0] != 13:
-        raise ValueError("sao_apply: offs must be [5, ch, cw]")
-    out = torch.empty_like(plane)
+def sao_apply_ref(planes, prms, sizes, shift, pix_max):
+    """Plain PyTorch SAO (`fused_device._sao_apply`) of a list of planes.
+    planes: int16 [H, W] each; prms: the packed int32 [13, ch, cw]
+    per-CTB parameters of each (`pack_params`); sizes: (cs_v, cs_h) CTB
+    size of each in its samples.  Returns new int16 planes."""
+    return [_sao_plane_ref(x, p, cs_v, cs_h, shift, pix_max)
+            for x, p, (cs_v, cs_h) in zip(planes, prms, sizes)]
+
+
+def sao_apply(planes, prms, sizes, shift, pix_max):
+    """SAO of up to three planes: one launch of the CUDA kernel on CUDA
+    tensors, `sao_apply_ref` on CPU tensors.  Same arguments as
+    `sao_apply_ref`; returns new int16 [H, W] tensors."""
+    kind = planes[0].device.type
+    if kind == "cpu":
+        return sao_apply_ref(planes, prms, sizes, shift, pix_max)
+    if kind != "cuda":
+        raise ValueError(f"sao_apply: unsupported device {planes[0].device}")
+    n = len(planes)
+    if not 1 <= n <= 3 or len(prms) != n or len(sizes) != n:
+        raise ValueError("sao_apply: one to three planes, each with its "
+                         "parameters and CTB size")
+    outs, ptrs, dims = [], [], []
+    for x, p, (cs_v, cs_h) in zip(planes, prms, sizes):
+        H, W = x.shape
+        if x.dtype != torch.int16 or p.dtype != torch.int32 or \
+                not (x.is_cuda and p.is_cuda and x.is_contiguous()
+                     and p.is_contiguous()) or x.data_ptr() % 8:
+            raise ValueError("sao_apply: contiguous, 8-byte aligned CUDA "
+                             "int16 planes and int32 parameters expected")
+        ch, cw = p.shape[1:]
+        if p.shape[0] != 13 or ch * cs_v < H or cw * cs_h < W or W % 4 or \
+                min(cs_v, cs_h) < MIN_CTB:
+            raise ValueError("sao_apply: parameters [13, ch, cw] must cover "
+                             "the plane, its width a multiple of 4 and its "
+                             f"CTB at least {MIN_CTB}")
+        out = torch.empty_like(x)
+        outs.append(out)
+        ptrs += [x.data_ptr(), out.data_ptr(), p.data_ptr()]
+        dims += [H, W, ch, cw, _log2(cs_v, "cs_v"), _log2(cs_h, "cs_h")]
     err = _build.lib().ffvvc_sao(
-        plane.data_ptr(), out.data_ptr(), H, W, prm.data_ptr(), ch, cw,
-        _log2(cs_v, "cs_v"), _log2(cs_h, "cs_h"), shift, pix_max,
-        torch.cuda.current_stream(plane.device).cuda_stream)
+        n, (ctypes.c_void_p * len(ptrs))(*ptrs),
+        (ctypes.c_int * len(dims))(*dims), shift, pix_max,
+        stream_of(planes[0]))
     _build.check(err, "ffvvc_sao")
     sao_apply.launches += 1
-    return out
+    return outs
 
 
 # kernel launches (chip_smoke.py resets and reads it)

@@ -2,8 +2,8 @@
 
 JAX's `fused_device._chain` is wrapped to record every (meta, arrays,
 output) of a JAX device_pipeline decode; the same numpy arrays then go
-through the port's `to_device(..., "cpu")` and `chain`, and each output
-plane must be equal.  The streams are those of tests/test_device_filters.py's
+through the port's `to_device(meta, ..., "cpu")` and `chain`, and each
+output plane must be equal.  The streams are those of tests/test_device_filters.py's
 test_fused_chain_formats (FORMATS: slice types, bit depths, chroma formats
 and CTU sizes, each with SAO, ALF, CC-ALF and LMCS on).  This file takes
 the slice-type and bit-depth streams; test_torch_fused_formats.py the
@@ -72,9 +72,9 @@ def record_jax_chain(name, monkeypatch):
 
 def check_chain_matches_jax(name, monkeypatch):
     """Every recorded JAX chain call, replayed through the port's
-    `to_device(..., "cpu")` and `chain`, gives equal planes."""
+    `to_device(meta, ..., "cpu")` and `chain`, gives equal planes."""
     for meta, arrs, want in record_jax_chain(name, monkeypatch):
-        got = fd.chain(meta, fd.to_device(arrs, "cpu"))
+        got = fd.chain(meta, fd.to_device(meta, arrs, "cpu"))
         assert len(got) == len(want)
         for c, (g, w) in enumerate(zip(got, want)):
             assert np.array_equal(g.numpy().astype(np.int32),

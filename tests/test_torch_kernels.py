@@ -7,9 +7,10 @@ arrays, through:
     fed the per-pixel planes they take, expanded here in numpy;
   * the JAX fused-chain forms `_sao_apply`, `_alf_filter_plane` and
     `_cc_filter`;
-  * the port's twins (`sao_apply_ref`, `alf_filter_plane_ref`,
-    `cc_filter_ref`) and their wrappers, which run the twins on CPU
-    tensors.
+  * the port's plain versions (`sao_apply_ref`, `alf_filter_luma_ref` and
+    `alf_filter_chroma_ref` over `alf_filter_plane_ref`, `cc_filter_ref`),
+    which take 16-bit samples and parameters by index, and their wrappers,
+    which run the plain versions on CPU tensors.
 The plain PyTorch stages of the chain — deblocking (`luma_math`,
 `chroma_math`) and the ALF classification — are held against JAX's too.
 Every comparison is integer equality (tolerance 0).
@@ -19,13 +20,15 @@ import pytest
 import torch
 import jax.numpy as jnp
 
+from ffvvc_tpu import alf
 from ffvvc_tpu.ops import alf_device as jalf
 from ffvvc_tpu.ops import deblock_device as jdb
 from ffvvc_tpu.ops import fused_device as jfd
 from ffvvc_tpu.ops import sao_device as jsao
 from ffvvc_tpu_torch.ops import alf_device, deblock_device, fused_device
 from ffvvc_tpu_torch.ops import sao_device
-from ffvvc_tpu_torch.ops.kernel_inputs import (alf_inputs, cc_inputs,
+from ffvvc_tpu_torch.ops.kernel_inputs import (alf_chroma_inputs,
+                                               alf_luma_inputs, cc_inputs,
                                                sao_inputs)
 
 
@@ -43,17 +46,13 @@ def same(got, want):
 
 # ---- SAO --------------------------------------------------------------------
 
-@pytest.mark.parametrize("bd,cs_v,cs_h,H,W,seed", [
-    (8, 32, 32, 72, 104, 0),     # luma, CTB 32, ragged right/bottom CTBs
-    (10, 64, 64, 88, 136, 1),    # luma, CTB 64
-    (12, 16, 16, 36, 52, 2),     # 4:2:0 chroma of CTB 32
-    (10, 64, 32, 64, 40, 3),     # 4:2:2 chroma of CTB 64
-])
-def test_sao_twin_matches_jax(bd, cs_v, cs_h, H, W, seed):
-    rng = np.random.default_rng(seed)
+def _sao_case(rng, H, W, cs_v, cs_h, bd):
+    """Seeded inputs, and the JAX Pallas kernel's output on them (per-pixel
+    maps and the keep map expanded in numpy), checked against the JAX
+    fused form."""
     plane, p = sao_inputs(rng, H, W, cs_v, cs_h, bd)
     shift, pix_max = bd - 5, (1 << bd) - 1
-    # JAX Pallas: per-pixel maps and the keep map expanded in numpy
+    wide = plane.astype(np.int32)
     e = {k: px(v, cs_v, cs_h, H, W) for k, v in p.items() if k != "offs"}
     offs = np.stack([px(p["offs"][k], cs_v, cs_h, H, W) for k in range(5)])
     xs = np.arange(W)[None, :]
@@ -62,46 +61,69 @@ def test_sao_twin_matches_jax(bd, cs_v, cs_h, H, W, seed):
     keep = ((xs == 0) & (e["kl"] != 0)) | ((xs == W - 1) & (e["kr"] != 0)) \
         | ((ys == 0) & (e["kt"] != 0) & in_x) \
         | ((ys == H - 1) & (e["kb"] != 0) & in_x)
-    want = jsao._sao_pallas(np.pad(plane, 1, mode="edge"), e["typ"],
+    want = jsao._sao_pallas(np.pad(wide, 1, mode="edge"), e["typ"],
                             e["m1"], offs, keep.astype(np.int32), shift,
                             pix_max)
-    fused = jfd._sao_apply(jnp.asarray(plane),
+    fused = jfd._sao_apply(jnp.asarray(wide),
                            {k: jnp.asarray(v) for k, v in p.items()},
                            cs_v, cs_h, shift, pix_max)
     same(fused, want)
-    tp = {k: torch.from_numpy(v) for k, v in p.items()}
-    args = (torch.from_numpy(plane), tp, cs_v, cs_h, shift, pix_max)
-    same(sao_device.sao_apply_ref(*args), want)
-    same(sao_device.sao_apply(*args), want)
-    assert not np.array_equal(np.asarray(want), plane), "SAO changed nothing"
+    assert not np.array_equal(np.asarray(want), wide), "SAO changed nothing"
+    return (torch.from_numpy(plane),
+            torch.from_numpy(sao_device.pack_params(p)), np.asarray(want))
+
+
+@pytest.mark.parametrize("bd,cs_v,cs_h,H,W,seed", [
+    (8, 32, 32, 72, 104, 0),     # luma, CTB 32, ragged right/bottom CTBs
+    (10, 64, 64, 88, 136, 1),    # luma, CTB 64
+    (12, 16, 16, 36, 52, 2),     # 4:2:0 chroma of CTB 32
+    (10, 64, 32, 64, 40, 3),     # 4:2:2 chroma of CTB 64
+])
+def test_sao_twin_matches_jax(bd, cs_v, cs_h, H, W, seed):
+    rng = np.random.default_rng(seed)
+    plane, prm, want = _sao_case(rng, H, W, cs_v, cs_h, bd)
+    args = ([plane], [prm], [(cs_v, cs_h)], bd - 5, (1 << bd) - 1)
+    (got,) = sao_device.sao_apply_ref(*args)
+    assert got.dtype == torch.int16
+    same(got, want)
+    same(sao_device.sao_apply(*args)[0], want)
+
+
+def test_sao_three_planes_in_one_call():
+    """The planes of a 4:2:0 picture through one call, as the chain passes
+    them: each equals the JAX kernel on that plane."""
+    rng = np.random.default_rng(7)
+    bd = 10
+    cases = [_sao_case(rng, H, W, cs, cs, bd)
+             for H, W, cs in ((72, 104, 32), (36, 52, 16), (36, 52, 16))]
+    got = sao_device.sao_apply([c[0] for c in cases], [c[1] for c in cases],
+                               [(32, 32), (16, 16), (16, 16)], bd - 5,
+                               (1 << bd) - 1)
+    assert len(got) == 3
+    for g, c in zip(got, cases):
+        same(g, c[2])
 
 
 # ---- ALF --------------------------------------------------------------------
 
-@pytest.mark.parametrize("bd,luma,cs_v,cs_h,H,W,seed", [
-    (10, True, 64, 64, 72, 96, 0),     # luma CTB 64, ragged bottom CTB row
-    (8, True, 32, 32, 48, 40, 1),      # luma CTB 32
-    (12, False, 32, 32, 36, 52, 2),    # 4:2:0 chroma of CTB 64
-    (10, False, 32, 16, 40, 44, 3),    # 4:2:2 chroma of CTB 32
-])
-def test_alf_twin_matches_jax(bd, luma, cs_v, cs_h, H, W, seed):
-    rng = np.random.default_rng(seed)
-    cur, rowsel, vbsel, cf, cl, l2h, l2w = alf_inputs(rng, H, W, cs_v, cs_h,
-                                                      bd, luma)
+def _alf_jax(cur, cf_blk, cl_blk, blk_h, blk_w, cs_v, luma, pix_max):
+    """The JAX Pallas kernel (its 48-plane form: tap samples, coefficients,
+    clips) on per-block coefficients, with the JAX package's own
+    virtual-boundary row tables; checked against the JAX fused form."""
+    H, W = cur.shape
     b = 3 if luma else 2
-    pix_max = (1 << bd) - 1
+    rowsel, vbsel = jfd._alf_vb_arrays(H, cs_v, b, 4 if luma else 2, luma)
     slots = range(12) if luma else alf_device._CHROMA_SLOT
     P3 = np.pad(cur, b, mode="edge")
-    # JAX Pallas: the 48-plane form (tap samples, coefficients, clips)
     v0 = np.repeat(cur[None], 12, 0)
     v1 = v0.copy()
     for s in slots:
         ka, da, kb, db = alf_device._LUMA_TAPS[s]
         v0[s] = P3[rowsel[ka]][:, b + da:b + da + W]
         v1[s] = P3[rowsel[kb]][:, b + db:b + db + W]
-    cf_px = np.stack([px(cf[:, :, s], 1 << l2h, 1 << l2w, H, W)
+    cf_px = np.stack([px(cf_blk[:, :, s], blk_h, blk_w, H, W)
                       for s in range(12)])
-    cl_px = np.stack([px(cl[:, :, s], 1 << l2h, 1 << l2w, H, W)
+    cl_px = np.stack([px(cl_blk[:, :, s], blk_h, blk_w, H, W)
                       for s in range(12)])
     vb_px = np.repeat(vbsel[:, None], W, 1)
     want = jalf._alf_pallas(cur, v0, v1, cf_px, cl_px, vb_px, pix_max)
@@ -111,15 +133,72 @@ def test_alf_twin_matches_jax(bd, luma, cs_v, cs_h, H, W, seed):
         jnp.asarray(vbsel), {s: jnp.asarray(cf_px[s]) for s in slots},
         {s: jnp.asarray(cl_px[s]) for s in slots}, taps, slots, b, pix_max)
     same(fused, want)
-    tcur = torch.from_numpy(cur)
-    args = (tcur, sao_device.pad_edge(tcur, b), torch.from_numpy(rowsel).long(),
-            torch.from_numpy(vbsel), torch.from_numpy(cf),
-            torch.from_numpy(cl), l2h, l2w,
-            alf_device.LUMA_SLOTS if luma else alf_device.CHROMA_SLOTS, b,
-            pix_max)
-    same(alf_device.alf_filter_plane_ref(*args), want)
-    same(alf_device.alf_filter_plane(*args), want)
     assert not np.array_equal(np.asarray(want), cur), "ALF changed nothing"
+    return np.asarray(want)
+
+
+@pytest.mark.parametrize("bd,luma,cs_v,cs_h,H,W,seed", [
+    (10, True, 64, 64, 72, 96, 0),     # luma CTB 64, ragged bottom CTB row
+    (8, True, 32, 32, 48, 40, 1),      # luma CTB 32
+    (12, False, 32, 32, 36, 52, 2),    # 4:2:0 chroma of CTB 64
+    (10, False, 32, 16, 40, 44, 3),    # 4:2:2 chroma of CTB 32
+    (10, True, 32, 32, 60, 72, 4),     # last CTB row ends inside the window
+    (8, False, 16, 16, 31, 36, 5),     # chroma likewise (rows 12..14 of 16)
+    (10, True, 128, 128, 136, 132, 6),  # luma CTB 128
+])
+def test_alf_twin_matches_jax(bd, luma, cs_v, cs_h, H, W, seed):
+    """Every row of the +-4 window around each virtual boundary is in these
+    planes (each CTB row has one), with whole and partial last CTB rows."""
+    rng = np.random.default_rng(seed)
+    pix_max = (1 << bd) - 1
+    t = torch.from_numpy
+    if luma:
+        src, ci, ti, ctb_set, cf, cl = alf_luma_inputs(rng, H, W, cs_v, bd)
+        set_blk = px(ctb_set, cs_v // 4, cs_v // 4, H // 4, W // 4)
+        perm = np.array(alf._TRANSPOSE_IDX)[ti]
+        cf_blk = np.take_along_axis(cf[set_blk, ci], perm, 2)
+        cl_blk = np.take_along_axis(cl[set_blk, ci], perm, 2)
+        want = _alf_jax(src.astype(np.int32), cf_blk, cl_blk, 4, 4, cs_v,
+                        True, pix_max)
+        args = (t(src), t(ci), t(ti), t(ctb_set), t(cf), t(cl), cs_v,
+                pix_max)
+        got = alf_device.alf_filter_luma_ref(*args)
+        assert got.dtype == torch.int16
+        same(got, want)
+        same(alf_device.alf_filter_luma(*args), want)
+        return
+    planes = [alf_chroma_inputs(rng, H, W, cs_v, cs_h, bd) for _ in range(2)]
+    wants = [_alf_jax(src.astype(np.int32), cf[ctb_set], cl[ctb_set], cs_v,
+                      cs_h, cs_v, False, pix_max)
+             for src, ctb_set, cf, cl in planes]
+    args = tuple([t(p[k]) for p in planes] for k in range(4)) + \
+        (cs_v, cs_h, pix_max)
+    for fn in (alf_device.alf_filter_chroma_ref, alf_device.alf_filter_chroma):
+        got = fn(*args)
+        assert len(got) == 2 and got[0].dtype == torch.int16
+        for g, w in zip(got, wants):
+            same(g, w)
+
+
+@pytest.mark.parametrize("luma", [True, False])
+@pytest.mark.parametrize("cs_v,H", [(32, 1080), (16, 540), (32, 96),
+                                    (64, 200), (128, 240), (16, 270)])
+def test_vb_reach_matches_row_offsets(luma, cs_v, H):
+    """The tap rows the kernels compute from the row number (`vb_reach`:
+    nominal offsets clamped to +-reach) equal the host tables
+    `_alf_vb_arrays` builds from `_vb_row_offsets`, also in a last CTB row
+    that is partial (1080 = 33 * 32 + 24)."""
+    b, above = (3, 4) if luma else (2, 2)
+    rowsel, vbsel = fused_device._alf_vb_arrays(H, cs_v, b, above, luma)
+    ys = torch.arange(H)
+    reach = alf_device.vb_reach(ys, cs_v, cs_v - above)
+    for k, o in enumerate(alf_device._ROW_OFFSET):
+        if not luma and abs(o) > 2:
+            continue        # chroma has no +-3 taps
+        rows = ys + torch.clamp(torch.full_like(reach, o), -reach, reach)
+        assert np.array_equal(rows.numpy() + b, rowsel[k]), (k, o)
+        assert int(torch.clamp(rows, 0, H - 1).sub(rows).abs().max()) <= b
+    assert np.array_equal((reach == 0).numpy(), vbsel != 0)
 
 
 # ---- CC-ALF -----------------------------------------------------------------
@@ -131,7 +210,8 @@ def test_alf_twin_matches_jax(bd, luma, cs_v, cs_h, H, W, seed):
 ])
 def test_cc_twin_matches_jax(bd, hs, vs, cs, Hc, Wc, seed):
     rng = np.random.default_rng(seed)
-    dst, luma, rowsel, skip, cf = cc_inputs(rng, Hc, Wc, cs, hs, vs, bd)
+    dst16, luma16, rowsel, skip, cf = cc_inputs(rng, Hc, Wc, cs, hs, vs, bd)
+    dst, luma = dst16.astype(np.int32), luma16.astype(np.int32)
     b = 3
     pix_max, half = (1 << bd) - 1, 1 << (bd - 1)
     csv, csh = cs >> vs, cs >> hs
@@ -150,11 +230,12 @@ def test_cc_twin_matches_jax(bd, hs, vs, cs, Hc, Wc, seed):
                            {j: jnp.asarray(cf_px[j]) for j in range(7)}, hs,
                            half, pix_max)
     same(fused, want)
-    args = (torch.from_numpy(dst), sao_device.pad_edge(torch.from_numpy(luma),
-                                                       b),
+    args = (torch.from_numpy(dst16), torch.from_numpy(luma16),
             torch.from_numpy(rowsel).long(), torch.from_numpy(skip),
             torch.from_numpy(cf), csv, csh, hs, half, pix_max)
-    same(alf_device.cc_filter_ref(*args), want)
+    got = alf_device.cc_filter_ref(*args)
+    assert got.dtype == torch.int16
+    same(got, want)
     same(alf_device.cc_filter(*args), want)
     assert not np.array_equal(np.asarray(want), dst), "CC-ALF changed nothing"
 

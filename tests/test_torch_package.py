@@ -1,6 +1,7 @@
 """Package rules of the port: no JAX, explicit devices, explicit refusals,
 and a kernel loader that raises instead of falling back."""
 import ast
+import hashlib
 import os
 import subprocess
 import sys
@@ -9,49 +10,58 @@ import pytest
 import torch
 
 from ffvvc_tpu_torch import DecoderConfig, VVCDecoder
-from ffvvc_tpu_torch.ops import _build, sao_device
+from ffvvc_tpu_torch.ops import _build, alf_device, sao_device
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+STREAM_KW = dict(slice_type=2, nframes=2, width=96, height=64, seed=1,
+                 deblock=True, sps_sao_enabled_flag=1, sps_alf_enabled_flag=1,
+                 sps_ccalf_enabled_flag=1, sps_lmcs_enabled_flag=1)
+
 _NO_JAX_DECODE = r"""
 import hashlib, sys
-sys.modules["jax"] = None          # any "import jax" now raises ImportError
-sys.path[:0] = [ROOT, ROOT + "/tools"]
-# both packages before forge, which puts a fixed checkout path first
-import ffvvc_tpu, ffvvc_tpu_torch
-from ffvvc_tpu.config import DecoderConfig as HostConfig
-from ffvvc_tpu.decoder import VVCDecoder as HostDecoder
+# any import of JAX or of the JAX package now raises ImportError
+sys.modules["jax"] = None
+sys.modules["ffvvc_tpu"] = None
+sys.path.insert(0, ROOT)
+import ffvvc_tpu_torch
 from ffvvc_tpu_torch import DecoderConfig, VVCDecoder
 from ffvvc_tpu_torch.ops import fused_device as fd
-from forge import forge_inter_stream
-for m in (ffvvc_tpu, ffvvc_tpu_torch):
-    assert m.__file__.startswith(ROOT + "/"), (m.__file__, ROOT)
-s = forge_inter_stream(slice_type=2, nframes=2, width=96, height=64, seed=1,
-                       deblock=True, sps_sao_enabled_flag=1,
-                       sps_alf_enabled_flag=1, sps_ccalf_enabled_flag=1,
-                       sps_lmcs_enabled_flag=1)
+from ffvvc_tpu_torch.tools.forge import forge_inter_stream
+assert ffvvc_tpu_torch.__file__.startswith(ROOT + "/"), ffvvc_tpu_torch.__file__
+s = forge_inter_stream(**STREAM_KW)
 def md5(frames):
     return hashlib.md5(b"".join(f.to_yuv_bytes() for f in frames)).hexdigest()
-host = md5(HostDecoder(HostConfig(backend="golden")).decode(s))
+host = md5(VVCDecoder(DecoderConfig(device="cpu",
+                                    device_pipeline=False)).decode(s))
 port = md5(VVCDecoder(DecoderConfig(device="cpu",
                                     device_pipeline=True)).decode(s))
 assert port == host, (port, host)
 assert fd.stats["frames"] == 2, fd.stats
-loaded = [m for m, v in sys.modules.items()
-          if v is not None and m.split(".")[0] in ("jax", "jaxlib")]
+loaded = [m for m, v in sys.modules.items() if v is not None and
+          (m.split(".")[0] in ("jax", "jaxlib", "ffvvc_tpu"))]
 assert not loaded, loaded
 print("NO_JAX_OK", port)
-""".replace("ROOT", repr(ROOT))
+""".replace("ROOT", repr(ROOT)).replace("STREAM_KW", repr(STREAM_KW))
 
 
 def test_decode_without_jax():
     """Forge and decode a SAO/ALF/CC-ALF/LMCS stream through the port in a
-    process where JAX cannot be imported; md5 equal to the host decode."""
+    process where neither JAX nor ffvvc_tpu can be imported, fused chain on
+    and off; the md5 equals ffvvc_tpu's host decode of the same stream."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-c", _NO_JAX_DECODE], env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-4000:]
-    assert "NO_JAX_OK" in r.stdout
+    port = r.stdout.split("NO_JAX_OK")[1].split()[0]
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from forge import forge_inter_stream
+    from ffvvc_tpu.config import DecoderConfig as HostConfig
+    from ffvvc_tpu.decoder import VVCDecoder as HostDecoder
+    frames = HostDecoder(HostConfig(backend="golden")).decode(
+        forge_inter_stream(**STREAM_KW))
+    assert port == hashlib.md5(
+        b"".join(f.to_yuv_bytes() for f in frames)).hexdigest()
 
 
 def _imports(path):
@@ -65,28 +75,59 @@ def _imports(path):
 
 
 def test_no_jax_imports():
-    """No module of the port imports jax, or a module of the JAX package's
-    device half (ffvvc_tpu.ops.* but the JAX-free data tables,
-    ffvvc_tpu.parallel); chip_smoke.py imports neither jax nor any module
-    of the JAX package."""
-    smoke = os.path.join(ROOT, "chip_smoke.py")
-    bad = [m for m in _imports(smoke)
-           if m.split(".")[0] in ("jax", "jaxlib", "ffvvc_tpu")]
-    assert not bad, bad
-    files = [smoke]
+    """No module of the port and not chip_smoke.py imports jax, jaxlib,
+    ffvvc_tpu or anything under it."""
+    files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "ffvvc_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
-    bad = []
-    for f in files:
-        for mod in _imports(f):
-            top = mod.split(".")
-            if top[0] in ("jax", "jaxlib") or mod.startswith(
-                    "ffvvc_tpu.parallel") or (
-                    mod.startswith("ffvvc_tpu.ops.") and
-                    mod != "ffvvc_tpu.ops.data"):
-                bad.append((os.path.relpath(f, ROOT), mod))
-    assert len(files) > 10
+    bad = [(os.path.relpath(f, ROOT), mod) for f in files
+           for mod in _imports(f)
+           if mod.split(".")[0] in ("jax", "jaxlib", "ffvvc_tpu")]
+    assert len(files) > 40
     assert not bad, bad
+
+
+def test_transpose_constants_match_golden_model():
+    """The packed slot permutations of csrc/filters.cu (4 bits a slot) are
+    alf._TRANSPOSE_IDX."""
+    import re
+    from ffvvc_tpu_torch.alf import _TRANSPOSE_IDX
+    with open(_build.SOURCE) as f:
+        found = dict(re.findall(r"kPerm(\d) = 0x([0-9A-Fa-f]+)ull", f.read()))
+    assert sorted(found) == ["0", "1", "2", "3"]
+    for t_idx, row in enumerate(_TRANSPOSE_IDX):
+        packed = int(found[str(t_idx)], 16)
+        assert [(packed >> (4 * s)) & 15 for s in range(12)] == list(row)
+
+
+def test_sass_histogram_counts_opcodes():
+    """tools/sass.py on a piece of `cuobjdump -sass` output: instructions
+    are counted per kernel under their opcode, predicates and encoding
+    lines are not instructions, IMAD's variants keep their second part."""
+    from ffvvc_tpu_torch.tools import sass
+    enc = " " * 86 + "/* 0x000e300000000800 */"
+    text = "\n".join([
+        "\tcode for sm_90a",
+        "\t\tFunction : _ZN43_GLOBAL__N__ab2f_10_filters_cu_3797ac3e"
+        "10alf_kernelILb1EEEvNS_7AlfArgsE",
+        '\t.headerflags\t@"EF_CUDA_SM90"',
+        "        /*0000*/                   LDC R1, c[0x0][0x28] ;   /* 0x0 */",
+        enc,
+        "        /*0010*/                   VIADDMNMX R4, R5, -R6, R7, !PT ;",
+        enc,
+        "        /*0020*/               @P0 BRA 0x120 ;   /* 0x1 */",
+        "        /*0030*/              @!P1 IMAD.IADD R2, R3, 0x1, R4 ;",
+        "        /*0040*/                   IMAD R2, R3, R5, R4 ;",
+        "        /*0050*/                   LDS.128 R8, [R2+0x10] ;",
+        "\t\tFunction : _ZN43_GLOBAL__N__ab2f_10_filters_cu_3797ac3e"
+        "9cc_kernelEPKsS1_iiPs",
+        "        /*0000*/                   ULDC.64 UR4, c[0x0][0x248] ;",
+    ])
+    got = sass.histogram(text)
+    assert got == {
+        "alf_kernel<1>": {"LDC": 1, "VIADDMNMX": 1, "BRA": 1, "IMAD.IADD": 1,
+                          "IMAD": 1, "LDS": 1},
+        "cc_kernel": {"ULDC": 1}}
 
 
 def test_cuda_device_raises_without_cuda(monkeypatch):
@@ -140,9 +181,25 @@ def test_loader_raises_on_failed_build(monkeypatch, tmp_path):
 def test_wrapper_refuses_other_devices():
     """A wrapper runs its twin only for CPU tensors; any other device
     launches the kernel (CUDA) or raises."""
-    plane = torch.zeros((8, 8), dtype=torch.int32, device="meta")
-    p = {k: torch.zeros((1, 1), dtype=torch.int32, device="meta")
-         for k in ("typ", "m1", "kl", "kr", "kt", "kb", "ax", "bx")}
-    p["offs"] = torch.zeros((5, 1, 1), dtype=torch.int32, device="meta")
+    plane = torch.zeros((16, 16), dtype=torch.int16, device="meta")
+    prm = torch.zeros((13, 1, 1), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        sao_device.sao_apply(plane, p, 8, 8, 3, 255)
+        sao_device.sao_apply([plane], [prm], [(16, 16)], 3, 255)
+    i32 = dict(dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        alf_device.alf_filter_luma(
+            torch.zeros((32, 32), dtype=torch.int16, device="meta"),
+            torch.zeros((8, 8), **i32), torch.zeros((8, 8), **i32),
+            torch.zeros((1, 1), **i32), torch.zeros((1, 25, 12), **i32),
+            torch.zeros((1, 25, 12), **i32), 32, 255)
+    with pytest.raises(ValueError, match="unsupported device"):
+        alf_device.alf_filter_chroma(
+            [plane], [torch.zeros((1, 1), **i32)],
+            [torch.zeros((1, 12), **i32)], [torch.zeros((1, 12), **i32)],
+            16, 16, 255)
+    with pytest.raises(ValueError, match="unsupported device"):
+        alf_device.cc_filter(
+            plane, torch.zeros((32, 32), dtype=torch.int16, device="meta"),
+            torch.zeros((4, 16), dtype=torch.int64, device="meta"),
+            torch.zeros((16,), **i32), torch.zeros((1, 1, 7), **i32), 16, 16,
+            1, 128, 255)
