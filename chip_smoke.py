@@ -9,27 +9,37 @@ Phases, each of which raises on a fault (the script then exits non-zero):
    _build.py) and the host half's eight C libraries with gcc
    (ffvvc_tpu_torch/native/_build.py), each from the package's own sources.
 3. Kernels: SAO (three planes in one launch), luma ALF, chroma ALF (two
-   planes in one launch) and CC-ALF on seeded inputs, each held against its
-   plain PyTorch version exactly (torch.equal), at the shapes a 1080p 10-bit
-   4:2:0 frame with CTB 32 gives them (luma 1080x1920, chroma 540x960; the
-   last CTB row is partial) and at 416x240 4:2:0 with CTB 32 and CTB 128
-   (8-aligned, not tile-aligned, last CTB row partial); SAO also with
-   luma and chroma in launches of their own.  At the 1080p
-   shapes each kernel is timed on the device by replaying a CUDA graph of
-   its launches: warm (one input set, which stays in the L2) and cold
-   (cycling through input sets of over 100 MB, twice the L2), beside the
-   least time the card could take (`bound`: the larger of its bytes at the
-   memory rate and its integer operations at the rate of the busier pipe).
-   The plain version and one eager wrapper call (host overhead included)
-   are timed with CUDA events.
-4. Decode: two 4-frame 1080p10 all-intra streams with SAO, ALF, CC-ALF
-   and LMCS on, the first with LMCS chroma residual scaling (its host
-   recon runs in the Python golden model), the second without (the
-   native C recon runs).  Each is decoded through ffvvc_tpu_torch with
-   device_pipeline on the card; its YUV md5 must equal the host decode
-   of the same stream (the same decoder with device_pipeline off), every
-   frame must run the fused chain and every kernel must launch.  A
-   second, serial decode of each prints the time per stage.
+   planes in one launch) and CC-ALF (two planes in one launch) on seeded
+   inputs, each held against its plain PyTorch version exactly
+   (torch.equal), at the shapes a 1080p 10-bit 4:2:0 frame with CTB 32
+   gives them (luma 1080x1920, chroma 540x960; the last CTB row is
+   partial) and at 416x240 4:2:0 with CTB 32 and CTB 128 (8-aligned, not
+   tile-aligned, last CTB row partial); SAO also with luma and chroma in
+   launches of their own, CC-ALF also with one plane.  Each kernel also in
+   the variant that pictures with slices or tiles that filtering must not
+   cross need: SAO with kept ranges on every edge-offset CTB, ALF and
+   CC-ALF with random per-CTB edge words.  At the 1080p shapes each is
+   timed on the device by replaying a CUDA graph of its launches: warm (one
+   input set, which stays in the L2) and cold (cycling through input sets
+   of over 100 MB, twice the L2), beside the least time the card could take
+   (`bound`: the larger of its bytes at the memory rate and its integer
+   operations at the rate of the busier pipe).  The plain version and one
+   eager wrapper call (host overhead included) are timed with CUDA events.
+4. Decode: 2-frame 1080p10 all-intra streams with SAO, ALF, CC-ALF and
+   LMCS on: `lmcs-crs` with LMCS chroma residual scaling (its host recon
+   runs in the Python golden model), `c-recon` without (the native C recon
+   runs), and `across-off`, as `c-recon` with two tile columns and no
+   filtering across tiles or slices.  Two paths through ffvvc_tpu_torch on
+   the card: the fused chain (device_pipeline) on all three, and the
+   per-stage device filters (device_lmcs, device_deblock, device_sao,
+   device_alf) on `c-recon` and `across-off`.  Every decode's YUV md5 must
+   equal the host decode of the same stream (the same decoder with every
+   device toggle off).  On the first two streams every frame must run the
+   fused chain; it must decline `across-off`, which the per-stage path
+   then filters with all kernels, ALF and CC-ALF with edge words.  Each
+   path is driven with the launch counts set to 0 just before and read
+   just after, and every kernel must have launched.  A second, serial
+   decode prints the time per stage.
 5. No module of the JAX package and no JAX was loaded.
 
 The last two lines of stdout are a JSON summary of the kernels and the
@@ -60,28 +70,55 @@ from ffvvc_tpu_torch.ops import _build  # noqa: E402
 from ffvvc_tpu_torch.ops import alf_device, sao_device  # noqa: E402
 from ffvvc_tpu_torch.ops import fused_device as fd  # noqa: E402
 from ffvvc_tpu_torch.ops.kernel_inputs import (  # noqa: E402
-    alf_chroma_inputs, alf_luma_inputs, cc_inputs, sao_inputs)
+    alf_chroma_inputs, alf_luma_inputs, cc_inputs, edge_words, sao_inputs,
+    sao_restore_inputs)
 
-W, H, CTB, BD, NFRAMES, QP = 1920, 1080, 32, 10, 4, 30
+W, H, CTB, BD, NFRAMES, QP = 1920, 1080, 32, 10, 2, 30
 SEED = 0
 # the decoded streams: label -> extra forge arguments.  With LMCS chroma
 # residual scaling on, the host half declines its native C recon
 # (ffvvc_tpu_torch/decoder.py, native_recon_ok) and reconstructs in the
 # Python golden model; with it off the C recon runs, as on the decoder's
 # main path.
+_NO_CRS = {"ph_kw": {"ph_chroma_residual_scale_flag": 0}}
 STREAMS = {
     "lmcs-crs": {},
-    "c-recon": {"ph_kw": {"ph_chroma_residual_scale_flag": 0}},
+    "c-recon": _NO_CRS,
+    # two tile columns, no loop filter across tiles or slices: the fused
+    # chain declines it, the per-stage filters take it
+    "across-off": dict(_NO_CRS, info_in_ph=True, pps_kw={
+        "lf_across_tiles": 0, "lf_across_slices": 0}),
 }
-MAIN = "c-recon"        # the stream whose launch counts the summary reports
+# the two paths through the decoder, as DecoderConfig toggles
+PATHS = {
+    "fused": dict(device_pipeline=True),
+    "stages": dict(device_lmcs=True, device_deblock=True, device_sao=True,
+                   device_alf=True),
+}
+# (stream, path) of every decode; the summary reports the launch counts of
+# MAIN for the kernels as the fused chain runs them and of MAIN_STAGES for
+# the variants only the per-stage path runs
+DECODES = (("lmcs-crs", "fused"), ("c-recon", "fused"), ("c-recon", "stages"),
+           ("across-off", "fused"), ("across-off", "stages"))
+MAIN = ("c-recon", "fused")
+MAIN_STAGES = ("across-off", "stages")
 FILTERS_CU = "ffvvc_tpu_torch/csrc/filters.cu"
-KERNELS = {   # name -> (wrapper, TPU kernel it replaces)
-    "sao": (sao_device.sao_apply, "ffvvc_tpu/ops/sao_device.py:59"),
-    "alf_luma": (alf_device.alf_filter_luma,
-                 "ffvvc_tpu/ops/alf_device.py:69"),
-    "alf_chroma": (alf_device.alf_filter_chroma,
-                   "ffvvc_tpu/ops/alf_device.py:69"),
-    "cc_alf": (alf_device.cc_filter, "ffvvc_tpu/ops/alf_device.py:94"),
+_SAO, _ALF, _CC = ("ffvvc_tpu/ops/sao_device.py:59",
+                   "ffvvc_tpu/ops/alf_device.py:69",
+                   "ffvvc_tpu/ops/alf_device.py:94")
+# name -> (wrapper, which of its launches: all, those without edge words or
+# those with, TPU kernel it replaces, decode whose count the summary reports)
+KERNELS = {
+    "sao": (sao_device.sao_apply, "all", _SAO, MAIN),
+    "sao/restore": (sao_device.sao_apply, "all", _SAO, MAIN_STAGES),
+    "alf_luma": (alf_device.alf_filter_luma, "plain", _ALF, MAIN),
+    "alf_luma/edges": (alf_device.alf_filter_luma, "edges", _ALF,
+                       MAIN_STAGES),
+    "alf_chroma": (alf_device.alf_filter_chroma, "plain", _ALF, MAIN),
+    "alf_chroma/edges": (alf_device.alf_filter_chroma, "edges", _ALF,
+                         MAIN_STAGES),
+    "cc_alf": (alf_device.cc_filter, "plain", _CC, MAIN),
+    "cc_alf/edges": (alf_device.cc_filter, "edges", _CC, MAIN_STAGES),
 }
 # Peak rates of one H100 SXM at its full 700 W (NVIDIA's data sheet): 3.35
 # TB/s of device memory; 67 TFLOP/s of float32 outside the tensor cores,
@@ -109,10 +146,12 @@ ALF_CHROMA_OPS = (6 * 4 + 3, 6 * 4 + 2)
 # signs of max and min and the clip (ALU 6), two subtracts, the add of the
 # signs and the add of the offset (FMA 4).
 SAO_OPS = {0: (0, 0), 1: (6, 2), 2: (6, 4)}
-# CC-ALF: a filtered row has 7 taps of subtract and multiply-add (FMA 14);
-# every sample has a rounding add, a shift, a clip, the add to chroma and a
-# clip: (5, 2).
-CC_TAP_OPS = (0, 14)
+# CC-ALF: a position of a filtered row has 7 subtracts, whichever planes use
+# them (FMA 7), and in each plane 7 multiply-adds (FMA 7); every sample of a
+# plane has a rounding add, a shift, a clip, the add to chroma and a clip:
+# (5, 2).
+CC_DIFF_OPS = (0, 7)
+CC_TAP_OPS = (0, 7)
 CC_TAIL_OPS = (5, 2)
 L2_BYTES = 50e6
 
@@ -224,9 +263,9 @@ def _as_list(x):
 
 
 def kernel_cases(dev, h, w, ctb, cold):
-    """The four kernels at the shapes a 4:2:0 h x w picture with CTB `ctb`
-    gives them.  With `cold`, each case gets enough input sets to exceed
-    the L2 twice over; else one."""
+    """The kernels and their variants at the shapes a 4:2:0 h x w picture
+    with CTB `ctb` gives them.  With `cold`, each case gets enough input
+    sets to exceed the L2 twice over; else one."""
     rng = np.random.default_rng(SEED)
     pix_max, half = (1 << BD) - 1, 1 << (BD - 1)
     hc, wc, cc = h // 2, w // 2, ctb // 2
@@ -244,71 +283,96 @@ def kernel_cases(dev, h, w, ctb, cold):
         return sum(x.numel() * x.element_size() for x in tensors)
     cases = []
     # SAO: the three planes in one launch
-    ins = [sao_inputs(rng, *s) for s in
-           ((h, w, ctb, ctb, BD), (hc, wc, cc, cc, BD), (hc, wc, cc, cc, BD))]
-    planes = [t(x) for x, _ in ins]
-    prms = [t(sao_device.pack_params(p)) for _, p in ins]
+    shapes = ((h, w, ctb, ctb, BD), (hc, wc, cc, cc, BD), (hc, wc, cc, cc, BD))
     sizes = [(ctb, ctb), (cc, cc), (cc, cc)]
-    ops = []        # of each plane, by the SAO type of each sample's CTB
-    for (x, p), (cv, ch_) in zip(ins, sizes):
-        typ = np.repeat(np.repeat(p["typ"], cv, 0), ch_, 1)
-        typ = typ[:x.shape[0], :x.shape[1]]
-        ops.append(sum(int((typ == k).sum()) * np.array(n)
-                       for k, n in SAO_OPS.items()))
-    # (name, label, planes): the launch the chain makes, then, to read
-    # beside the times of single-plane launches, luma and chroma apart
-    for name, label, sel in (
-            ("sao", f"3 planes {h}x{w} + 2x {hc}x{wc}", slice(0, 3)),
-            ("sao/luma", f"luma {h}x{w} alone", slice(0, 1)),
-            ("sao/chroma", f"2 planes {hc}x{wc} alone", slice(1, 3))):
-        pb = nbytes(*planes[sel])
+    ins = [sao_inputs(rng, *s) for s in shapes]
+    planes = [t(x) for x, _ in ins]
+    prms = [t(sao_device.pack_params(p, *s[:4])) for (_, p), s in
+            zip(ins, shapes)]
+    ins_r = [sao_restore_inputs(rng, *s) for s in shapes]
+    planes_r = [t(x) for x, _ in ins_r]
+    prms_r = [t(p) for _, p in ins_r]
+
+    def sao_ops(prm, plane, size):
+        """by the SAO type of each sample's CTB"""
+        typ = np.repeat(np.repeat(prm[0].cpu().numpy(), size[0], 0),
+                        size[1], 1)[:plane.shape[0], :plane.shape[1]]
+        return sum(int((typ == k).sum()) * np.array(n)
+                   for k, n in SAO_OPS.items())
+    # (name, label, planes): the launch the chain makes; to read beside the
+    # times of single-plane launches, luma and chroma apart; then the
+    # tables with kept ranges on every edge-offset CTB
+    for name, label, pl, pr, sel in (
+            ("sao", f"3 planes {h}x{w} + 2x {hc}x{wc}", planes, prms,
+             slice(0, 3)),
+            ("sao/luma", f"luma {h}x{w} alone", planes, prms, slice(0, 1)),
+            ("sao/chroma", f"2 planes {hc}x{wc} alone", planes, prms,
+             slice(1, 3)),
+            ("sao/restore", f"3 planes {h}x{w} + 2x {hc}x{wc}, kept ranges "
+             "on every edge-offset CTB", planes_r, prms_r, slice(0, 3))):
+        pb = nbytes(*pl[sel])
         cases.append(Case(
             name, label,
-            lambda s, p=prms[sel], z=sizes[sel]: sao_device.sao_apply(
+            lambda s, p=pr[sel], z=sizes[sel]: sao_device.sao_apply(
                 s, p, z, BD - 5, pix_max),
-            lambda s, p=prms[sel], z=sizes[sel]: sao_device.sao_apply_ref(
+            lambda s, p=pr[sel], z=sizes[sel]: sao_device.sao_apply_ref(
                 s, p, z, BD - 5, pix_max),
-            variants(planes[sel], pb), 2 * pb + nbytes(*prms[sel]),
-            sum(ops[sel])))
-    # luma ALF
+            variants(pl[sel], pb), 2 * pb + nbytes(*pr[sel]),
+            sum(sao_ops(p, x, z) for p, x, z in
+                zip(pr[sel], pl[sel], sizes[sel]))))
+    # luma ALF, without and with per-CTB edge words
     src, ci, ti, ctb_set, cf, cl = (t(a) for a in
                                     alf_luma_inputs(rng, h, w, ctb, BD))
-    rest = (ci, ti, ctb_set, cf, cl, ctb, pix_max)
+    edges = t(edge_words(rng, *ctb_set.shape))
     pb = nbytes(src)
-    # the kernel reads the tables of the sets in use once
-    cases.append(Case(
-        "alf_luma", f"luma {h}x{w}",
-        lambda s, r=rest: alf_device.alf_filter_luma(s[0], *r),
-        lambda s, r=rest: alf_device.alf_filter_luma_ref(s[0], *r),
-        variants([src], pb), 2 * pb + nbytes(ci, ti, ctb_set, cf, cl),
-        h * w * np.array(ALF_LUMA_OPS)))
+    for name, e in (("alf_luma", None), ("alf_luma/edges", edges)):
+        rest = (ci, ti, ctb_set, cf, cl, ctb, pix_max, e)
+        # the kernel reads the tables of the sets in use once
+        cases.append(Case(
+            name, f"luma {h}x{w}",
+            lambda s, r=rest: alf_device.alf_filter_luma(s[0], *r),
+            lambda s, r=rest: alf_device.alf_filter_luma_ref(s[0], *r),
+            variants([src], pb),
+            2 * pb + nbytes(ci, ti, ctb_set, cf, cl, *([] if e is None
+                                                       else [e])),
+            h * w * np.array(ALF_LUMA_OPS)))
     # chroma ALF: both planes in one launch
     ins = [[t(a) for a in alf_chroma_inputs(rng, hc, wc, cc, cc, BD)]
            for _ in range(2)]
     planes = [x[0] for x in ins]
-    rest = tuple([x[k] for x in ins] for k in (1, 2, 3)) + (cc, cc, pix_max)
+    edges = t(edge_words(rng, *ins[0][1].shape))
     pb = nbytes(*planes)
-    cases.append(Case(
-        "alf_chroma", f"2 planes {hc}x{wc}",
-        lambda s, r=rest: alf_device.alf_filter_chroma(s, *r),
-        lambda s, r=rest: alf_device.alf_filter_chroma_ref(s, *r),
-        variants(planes, pb),
-        2 * pb + nbytes(*[x for p in ins for x in p[1:]]),
-        2 * hc * wc * np.array(ALF_CHROMA_OPS)))
-    # CC-ALF: one chroma plane
-    dst, luma, rowsel, skip, cf = cc_inputs(rng, hc, wc, ctb, 1, 1, BD)
-    ops = wc * (int((skip == 0).sum()) * np.array(CC_TAP_OPS)
-                + hc * np.array(CC_TAIL_OPS))
-    dst, luma, skip, cf = t(dst), t(luma), t(skip), t(cf)
-    rowsel = t(rowsel).long()
-    rest = (rowsel, skip, cf, cc, cc, 1, half, pix_max)
-    pb = nbytes(dst, luma)
-    cases.append(Case(
-        "cc_alf", f"chroma {hc}x{wc}",
-        lambda s, r=rest: alf_device.cc_filter(s[0], s[1], *r),
-        lambda s, r=rest: alf_device.cc_filter_ref(s[0], s[1], *r),
-        variants([dst, luma], pb),
-        pb + nbytes(dst, rowsel, skip, cf), ops))
+    for name, e in (("alf_chroma", None), ("alf_chroma/edges", edges)):
+        rest = tuple([x[k] for x in ins] for k in (1, 2, 3)) + \
+            (cc, cc, pix_max, e)
+        cases.append(Case(
+            name, f"2 planes {hc}x{wc}",
+            lambda s, r=rest: alf_device.alf_filter_chroma(s, *r),
+            lambda s, r=rest: alf_device.alf_filter_chroma_ref(s, *r),
+            variants(planes, pb),
+            2 * pb + nbytes(*[x for p in ins for x in p[1:]],
+                            *([] if e is None else [e])),
+            2 * hc * wc * np.array(ALF_CHROMA_OPS)))
+    # CC-ALF: both chroma planes in one launch; one plane alone
+    dsts, luma, sets, tabs = cc_inputs(rng, hc, wc, ctb, 1, 1, BD)
+    dsts, sets, tabs = ([t(a) for a in x] for x in (dsts, sets, tabs))
+    luma = t(luma)
+    _, skip = alf_device.cc_row_offsets(torch.arange(hc), cc, 1)
+    rows = hc - int(skip.sum())
+    for name, n, e in (("cc_alf", 2, None), ("cc_alf/one", 1, None),
+                       ("cc_alf/edges", 2, edges)):
+        rest = (sets[:n], tabs[:n], cc, cc, 1, 1, half, pix_max, e)
+        ops = wc * (rows * (np.array(CC_DIFF_OPS) + n * np.array(CC_TAP_OPS))
+                    + n * hc * np.array(CC_TAIL_OPS))
+        pb = nbytes(luma, *dsts[:n])
+        cases.append(Case(
+            name, f"{n} plane{'s' if n > 1 else ''} {hc}x{wc}",
+            lambda s, r=rest, n=n: alf_device.cc_filter(s[1:1 + n], s[0], *r),
+            lambda s, r=rest, n=n: alf_device.cc_filter_ref(s[1:1 + n], s[0],
+                                                            *r),
+            variants([luma, *dsts[:n]], pb),
+            pb + nbytes(*dsts[:n], *sets[:n], *tabs[:n],
+                        *([] if e is None else [e])), ops))
     return cases
 
 
@@ -362,7 +426,7 @@ def check_kernels(dev, smi):
             continue
         summary[case.name] = {
             "name": case.name, "route": "cuda", "source": FILTERS_CU,
-            "replaces": KERNELS[case.name][1], "launches": 0,
+            "replaces": KERNELS[case.name][2], "launches": 0,
             "max_abs_err": err, "ms": warm, "cold_ms": cold,
             "call_ms": call, "plain_ms": plain, "bound_ms": bound,
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
@@ -374,7 +438,7 @@ def check_kernels(dev, smi):
 
 
 def forge_stream(**extra):
-    """A 4-frame 1080p10 all-intra stream with SAO, ALF, CC-ALF and LMCS
+    """A 1080p10 all-intra stream of NFRAMES frames with SAO, ALF, CC-ALF and LMCS
     switched on in every slice, cached in the temp directory; `extra`
     goes to the forge as well.
     (bench.py's device-leg stream, forge_tools_stream, sets only the SPS
@@ -406,54 +470,78 @@ def yuv_md5(frames):
     return h.hexdigest(), len(frames)
 
 
-def decode(label, stream, smi):
-    """Decode `stream` through the port's main path and check it against
-    the host decode of the same stream.  Returns the kernel launch counts
-    of the timed decode."""
+def host_decode(label, stream):
+    """The host reference: the same decoder with every device toggle off
+    runs the host half's own LMCS, deblock, SAO and ALF stages.  Returns
+    the YUV md5."""
     from ffvvc_tpu_torch import DecoderConfig, VVCDecoder
-
-    # the host reference: the same decoder with the fused chain off runs
-    # the host half's own LMCS, deblock, SAO and ALF stages
     t0 = time.monotonic()
-    ref_md5, n = yuv_md5(VVCDecoder(DecoderConfig(
-        device="cuda", device_pipeline=False)).decode(stream))
+    ref_md5, n = yuv_md5(VVCDecoder(DecoderConfig(device="cuda")).decode(
+        stream))
     dt = time.monotonic() - t0
     print(f"[{label}] host decode: {n} frames in {dt:.3f} s = "
           f"{n / dt:.3f} fps (host CPU), md5 {ref_md5}")
-    cfg = DecoderConfig(device="cuda", device_pipeline=True)
+    if n != NFRAMES:
+        raise AssertionError(f"[{label}] host decode gave {n} frames")
+    return ref_md5
+
+
+def decode(label, path, stream, ref_md5, smi):
+    """Decode `stream` through one path of the port (PATHS) and check it
+    against the host decode's md5.  Returns the kernel launch counts of the
+    timed decode: {kernel name of KERNELS: count}."""
+    from ffvvc_tpu_torch import DecoderConfig, VVCDecoder
+    tag = f"[{label}/{path}]"
+    declines = label == "across-off" and path == "fused"
+    cfg = DecoderConfig(device="cuda", **PATHS[path])
     VVCDecoder(cfg).decode(stream)                 # warm-up
-    # the main path: counts from zero, one decode, counts read after it
+    # the path: counts from zero, one decode, counts read after it
     fd.reset_stats()
-    for fn, _ in KERNELS.values():
-        fn.launches = 0
+    for fn, *_ in KERNELS.values():
+        fn.launches = fn.edge_launches = 0     # SAO has no edge variant
     torch.cuda.synchronize()
     t0 = time.monotonic()
     frames = VVCDecoder(cfg).decode(stream)
     dt = time.monotonic() - t0
-    launches = {k: fn.launches for k, (fn, _) in KERNELS.items()}
+    launches = {k: {"all": fn.launches, "edges": fn.edge_launches,
+                    "plain": fn.launches - fn.edge_launches}[which]
+                for k, (fn, which, _, _) in KERNELS.items()}
     stats = dict(fd.stats)
     md5, n = yuv_md5(frames)
-    print(f"[{label}] port decode: {n} frames in {dt:.3f} s = "
+    print(f"{tag} port decode: {n} frames in {dt:.3f} s = "
           f"{n / dt:.3f} fps, md5 {md5} [{smi}]")
-    nf = max(1, stats["frames"])
-    print(f"[{label}] wire per frame: {stats['up_bytes'] / nf / 1e6:.3f} MB "
-          f"up, {stats['down_bytes'] / nf / 1e6:.3f} MB down [{smi}]")
-    print(f"[{label}] launches in the timed decode: {json.dumps(launches)}")
+    print(f"{tag} launches in the timed decode, {n} frames: "
+          f"{json.dumps(launches)}; fused chain ran on {stats['frames']} "
+          "frames")
     if md5 != ref_md5 or n != NFRAMES:
-        raise AssertionError(f"[{label}] port decode md5 {md5} ({n} frames) "
+        raise AssertionError(f"{tag} port decode md5 {md5} ({n} frames) "
                              f"!= host {ref_md5}")
-    if stats["frames"] != NFRAMES:
-        raise AssertionError(f"[{label}] fused chain ran on "
-                             f"{stats['frames']} of {NFRAMES} frames")
+    if declines:
+        if stats["frames"] or any(launches.values()):
+            raise AssertionError(f"{tag} the fused chain must decline this "
+                                 f"stream: {stats['frames']} frames, "
+                                 f"{launches}")
+        return launches
+    if path == "fused":
+        nf = max(1, stats["frames"])
+        print(f"{tag} wire per frame: {stats['up_bytes'] / nf / 1e6:.3f} MB "
+              f"up, {stats['down_bytes'] / nf / 1e6:.3f} MB down [{smi}]")
+    if stats["frames"] != (NFRAMES if path == "fused" else 0):
+        raise AssertionError(f"{tag} fused chain ran on {stats['frames']} "
+                             f"of {NFRAMES} frames")
+    # the fused chain launches no kernel with edge words; the per-stage
+    # path launches ALF and CC-ALF with them only
+    want = {k: which == {"fused": "plain", "stages": "edges"}[path]
+            or which == "all" for k, (_, which, _, _) in KERNELS.items()}
     for k, v in launches.items():
-        if v <= 0:
-            raise AssertionError(f"[{label}] kernel {k} never launched in "
-                                 f"the decode")
+        if (v > 0) != want[k]:
+            raise AssertionError(f"{tag} kernel {k} launched {v} times in "
+                                 "the decode")
     # where the time goes: one more decode with the frame pipeline off so
     # the stage clock is not shared between the parse and pixel threads
     fd.reset_stats()
-    dec = VVCDecoder(DecoderConfig(device="cuda", device_pipeline=True,
-                                   pipeline_frames=False, profile=True))
+    dec = VVCDecoder(DecoderConfig(device="cuda", pipeline_frames=False,
+                                   profile=True, **PATHS[path]))
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
@@ -463,7 +551,7 @@ def decode(label, stream, smi):
                    for e in prof.key_averages()), reverse=True)
     busy_ms = sum(b[0] for b in busy) / 1e3
     n_launch = sum(b[1] for b in busy)
-    print(f"[{label}] serial decode: device busy {busy_ms / NFRAMES:.3f} ms "
+    print(f"{tag} serial decode: device busy {busy_ms / NFRAMES:.3f} ms "
           f"per frame of {dt / NFRAMES * 1e3:.1f} ms wall in "
           f"{n_launch / NFRAMES:.1f} kernels and copies per frame; top "
           "device work per frame: "
@@ -471,14 +559,16 @@ def decode(label, stream, smi):
                       for us, c, k in busy[:8]))
     ours = [(us, c, k) for us, c, k in busy
             if any(s in k for s in ("sao_kernel", "alf_kernel", "cc_kernel"))]
-    print(f"[{label}] hand kernels in the serial decode, per frame: "
+    print(f"{tag} hand kernels in the serial decode, per frame: "
           + "; ".join(f"{k[:48]} x{c / NFRAMES:g} "
                       f"{us / NFRAMES / 1e3:.4f} ms" for us, c, k in ours))
     stages = {k: round(v / NFRAMES * 1e3, 3)
               for k, v in dec.stage_times.items()}
-    stages["fused.build"] = round(fd.stats["build_s"] / NFRAMES * 1e3, 3)
-    stages["fused.device"] = round(fd.stats["device_s"] / NFRAMES * 1e3, 3)
-    print(f"[{label}] serial decode {NFRAMES / dt:.3f} fps; ms per frame by "
+    if path == "fused":
+        stages["fused.build"] = round(fd.stats["build_s"] / NFRAMES * 1e3, 3)
+        stages["fused.device"] = round(fd.stats["device_s"] / NFRAMES * 1e3,
+                                       3)
+    print(f"{tag} serial decode {NFRAMES / dt:.3f} fps; ms per frame by "
           f"stage: {json.dumps(stages)} [{smi}]")
     return launches
 
@@ -493,11 +583,17 @@ def main():
     print(f"nvidia-smi: {smi}")
     build()
     summary = check_kernels(dev, smi)
-    launches = {}
-    for label, extra in STREAMS.items():
-        launches[label] = decode(label, forge_stream(**extra), smi)
+    launches, streams, refs = {}, {}, {}
+    for label, path in DECODES:
+        if label not in streams:
+            streams[label] = forge_stream(**STREAMS[label])
+            refs[label] = host_decode(label, streams[label])
+        launches[label, path] = decode(label, path, streams[label],
+                                       refs[label], smi)
     for k in summary:
-        summary[k]["launches"] = launches[MAIN][k]
+        summary[k]["launches"] = launches[KERNELS[k][3]][k]
+        if summary[k]["launches"] <= 0:
+            raise AssertionError(f"kernel {k} never launched on its path")
     foreign = [m for m in sys.modules
                if m == "ffvvc_tpu" or m.startswith("ffvvc_tpu.")
                or m.split(".")[0] in ("jax", "jaxlib")]

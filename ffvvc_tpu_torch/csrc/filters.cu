@@ -17,15 +17,22 @@
 // and every thread then filters four neighbouring samples of one row, which
 // it reads from the tile with 16-byte shared loads and writes with one
 // 8-byte store.  Parameters are read per CTB or per 4x4 block, never per
-// sample.  chip_smoke.py computes each kernel's bound and PERF.md has the
-// times.  The least time of SAO and CC-ALF is that of their bytes (2 in, 2
-// out per sample), of luma and chroma ALF that of their integer operations
-// (a tap pair is subtract, clip, subtract, clip, add, multiply-add: about
-// 100 a luma sample, half on each integer pipe).  None runs at its bound:
-// measured on an H100, the time of each is set by the instructions it
-// executes (address arithmetic, staging and SAO's divergent band and edge
-// paths included) and, for ALF, by its shared-memory reads, not by device
-// memory.
+// sample.  Pictures whose slices or tiles forbid filtering across their
+// boundaries are covered per CTB: SAO keeps the samples of a CTB's border
+// that its descriptor names, ALF and CC-ALF clamp their taps to the CTB
+// where its edge word says so (template parameter EDGES, so that pictures
+// without such boundaries pay nothing for it).  CC-ALF reads each luma
+// sample at most twice and so takes it straight from device memory, both
+// chroma planes in one launch.
+//
+// chip_smoke.py computes each kernel's bound and PERF.md has the times.
+// The least time of SAO and CC-ALF is that of their bytes (2 in, 2 out per
+// sample), of luma and chroma ALF that of their integer operations (a tap
+// pair is subtract, clip, subtract, clip, add, multiply-add: about 100 a
+// luma sample, half on each integer pipe).  None runs at its bound: measured
+// on an H100, the time of each is set by the instructions it executes
+// (address arithmetic, staging and SAO's divergent band and edge paths
+// included) and, for ALF, by its shared-memory reads, not by device memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -97,6 +104,12 @@ __device__ __forceinline__ void ld4(const int* row, int (&w)[12]) {
   w[4] = b.x; w[5] = b.y; w[6] = b.z; w[7] = b.w;
 }
 
+// Per-CTB edge word of ALF and CC-ALF: a set bit says that no tap may be
+// taken from beyond that side of the CTB (AlfFilter._edges of the golden
+// model: the picture's border, or a slice or tile boundary that filtering
+// must not cross); the tap's coordinate is clamped to the CTB instead.
+constexpr int kEdgeLeft = 1, kEdgeTop = 2, kEdgeRight = 4, kEdgeBottom = 8;
+
 __device__ __forceinline__ void store4(short* dst, const int (&o)[kLane]) {
   uint2 v;
   v.x = (uint32_t)(o[0] & 0xffff) | ((uint32_t)o[1] << 16);
@@ -108,20 +121,28 @@ __device__ __forceinline__ void store4(short* dst, const int (&o)[kLane]) {
 // SAO.  Replaces ffvvc_tpu/ops/sao_device.py::_sao_pallas (body _sao_math)
 // as the fused chain runs it through fused_device._sao_apply.
 //
-// prm: int32 [13, ch, cw] per-CTB parameters, rows
+// prm: int32 [11, ch, cw] per-CTB parameters, rows
 //   0 typ, 1 m1 (band position or EO class), 2..6 offs[0..4],
-//   7 kl, 8 kr, 9 kt, 10 kb, 11 ax, 12 bx.
+//   7..10 the samples of the CTB's border that stay as they are, as ranges
+//   lo | hi << 16 in the CTB's own coordinates: the rows [lo, hi) of its
+//   first column (7) and of its last column (8), the columns [lo, hi) of
+//   its first row (9) and of its last row (10).  "Last" is the last inside
+//   the picture.  This covers the picture's border and the restore regions
+//   at slice and tile boundaries that filtering must not cross
+//   (sao_device._rasterize_plane of the JAX package), corners included.
 // The TPU version expands these to nine [H, W] maps and an edge-padded
 // int32 copy of the plane.  Here all planes of a picture go through one
 // launch (a block finds its plane from its index); a block copies the
 // parameters of the at most four CTBs its tile touches into shared memory,
-// each thread builds its keep flags from the frame border descriptors, and
-// the edge classes read their two neighbours from the shared tile.
+// the threads on the border of a CTB that keeps anything test their samples
+// against its four ranges, and the edge classes read their two neighbours
+// (unclamped at a CTB's edge: SAO reads across and then keeps) from the
+// shared tile.
 // ---------------------------------------------------------------------------
 
 constexpr int kSaoBand = 1;
 constexpr int kSaoEdge = 2;
-constexpr int kSaoRows = 13;
+constexpr int kSaoRows = 11;
 constexpr int kMaxCtbCols = 4;   // kTileW / 16: the narrowest CTB is 16
 
 struct SaoPlane {
@@ -199,18 +220,26 @@ sao_kernel(const SaoArgs a) {
 #pragma unroll
   for (int k = 0; k < kLane; ++k)
     out[k] = clampi(cen[k] + delta[k], 0, a.pix_max);
-  // the keep map: only threads on the picture's border can have one
-  if (x == 0 || x + kLane == P.W || y == 0 || y == P.H - 1) {
-    const int kl = prm[7], kr = prm[8], ax = prm[11], bx = prm[12];
-    const bool keep_row =
-        (y == 0 && prm[9] != 0) || (y == P.H - 1 && prm[10] != 0);
+  // the keep ranges: only threads on the border of a CTB that has one
+  const unsigned kc0 = prm[7], kc1 = prm[8], kr0 = prm[9], kr1 = prm[10];
+  if ((kc0 | kc1 | kr0 | kr1) != 0) {
+    const int x_loc = x & ((1 << P.log2_cs_h) - 1);
+    const int y_loc = y & ((1 << P.log2_cs_v) - 1);
+    // the CTB's size inside the picture
+    const int w = min(1 << P.log2_cs_h, P.W - (x - x_loc));
+    const int h = min(1 << P.log2_cs_v, P.H - (y - y_loc));
+    const bool first_row = y_loc == 0, last_row = y_loc == h - 1;
+    if (x_loc == 0 || x_loc + kLane == w || first_row || last_row) {
+      auto in = [](int v, unsigned r) {
+        return v >= (int)(r & 0xffff) && v < (int)(r >> 16);
+      };
 #pragma unroll
-    for (int k = 0; k < kLane; ++k) {
-      const int xk = x + k;
-      const int x_loc = xk & ((1 << P.log2_cs_h) - 1);
-      if ((xk == 0 && kl != 0) || (xk == P.W - 1 && kr != 0) ||
-          (keep_row && x_loc >= ax && x_loc < bx))
-        out[k] = cen[k];
+      for (int k = 0; k < kLane; ++k) {
+        const int xk = x_loc + k;
+        if ((xk == 0 && in(y_loc, kc0)) || (xk == w - 1 && in(y_loc, kc1)) ||
+            (first_row && in(xk, kr0)) || (last_row && in(xk, kr1)))
+          out[k] = cen[k];
+      }
     }
   }
   store4(P.dst + (int64_t)y * P.W + x, out);
@@ -244,6 +273,15 @@ sao_kernel(const SaoArgs a) {
 //    through one launch (blockIdx.z).
 // A thread's four samples share one 4x4 block row, so coefficients are
 // fetched once for four samples.
+//  * EDGES (the per-stage entry point, alf_device._AlfRasterizer of the JAX
+//    package): a per-CTB edge word [ch, cw] says on which sides the CTB's
+//    window is clamped to the CTB itself.  A thread clamps its own tap
+//    coordinates by the word of its own CTB (a tile spans up to four): the
+//    row offsets, after the virtual-boundary reach, to the rows the CTB has
+//    left above and below, and the columns by overwriting the words left of
+//    the CTB's first column or right of its last in the rows it has loaded.
+//    A clamped coordinate lies nearer to the thread's sample, so inside the
+//    tile that is staged anyway.
 // ---------------------------------------------------------------------------
 
 constexpr int kAlfClasses = 25;
@@ -292,14 +330,27 @@ __device__ __forceinline__ void alf_slot(int cf, int cl, const int (&wa)[12],
   }
 }
 
-template <bool LUMA>
+// columns beyond a clamped side of the thread's CTB take the value at the
+// CTB's first (w[4]) or last (w[7]) column
+__device__ __forceinline__ void clamp_cols(int (&w)[12], bool left,
+                                           bool right) {
+  if (left) w[1] = w[2] = w[3] = w[4];
+  if (right) w[8] = w[9] = w[10] = w[7];
+}
+
+// edges: int32 [ch, cw] edge word of each CTB, read with EDGES only.  It is
+// a parameter of its own, and the tap rows below are spelt out apart for
+// EDGES, so that the instantiations without EDGES compile to what a kernel
+// that knows no edge words would (752 instructions for luma on sm_90a).
+template <bool LUMA, bool EDGES>
 __global__ void __launch_bounds__(kThreadsX * kTileH)
-alf_kernel(const AlfArgs a) {
+alf_kernel(const AlfArgs a, const int* __restrict__ edges) {
   constexpr int HY = LUMA ? 3 : 2;
   __shared__ __align__(16) int tile[(kTileH + 2 * HY) * kPitch];
   __shared__ __align__(16) int
       s_coef[LUMA ? kBlkRows * kBlkCols * kCoefPitch
                   : kChromaCtbCols * 2 * kAlfSlots];
+  __shared__ int s_edge[EDGES ? kChromaCtbCols : 1];
   const AlfPlane P = blockIdx.z ? a.p[1] : a.p[0];
   const int x0 = blockIdx.x * kTileW, y0 = blockIdx.y * kTileH;
   stage_tile<HY>(P.src, a.H, a.W, x0, y0, tile);
@@ -337,6 +388,12 @@ alf_kernel(const AlfArgs a) {
                                   : __ldg(P.cl + base + r - kAlfSlots);
     }
   }
+  if constexpr (EDGES) {
+    if (tid >= 128 && tid < 128 + kChromaCtbCols) {
+      const int j = tid - 128;
+      s_edge[j] = cx0 + j < a.cw ? edges[cy * a.cw + cx0 + j] : 0;
+    }
+  }
   __syncthreads();
   const int x = x0 + kLane * threadIdx.x, y = y0 + threadIdx.y;
   if (x >= a.W || y >= a.H) return;
@@ -365,25 +422,58 @@ alf_kernel(const AlfArgs a) {
                     : (d == -2 || d == 1) ? 1
                     : (d == -3 || d == 2) ? 2 : 3;
   const int* mid = tile + (threadIdx.y + HY) * kPitch + kLane * threadIdx.x;
-  const int o1 = min(1, reach) * kPitch, o2 = min(2, reach) * kPitch;
+  // rows the taps may reach below (d*) and above (u*) the sample, and
+  // whether the thread's columns end at a clamped side of its CTB
+  int reach_d = reach, reach_u = reach;
+  bool left = false, right = false;
+  if constexpr (EDGES) {
+    const int e = s_edge[(x >> a.log2_cs_h) - cx0];
+    const int x_loc = x & ((1 << a.log2_cs_h) - 1);
+    const int y_loc = y & ((1 << a.log2_cs_v) - 1);
+    const int w = min(1 << a.log2_cs_h, a.W - (x - x_loc));
+    const int h = min(1 << a.log2_cs_v, a.H - (y - y_loc));
+    if (e & kEdgeTop) reach_u = min(reach, y_loc);
+    if (e & kEdgeBottom) reach_d = min(reach, h - 1 - y_loc);
+    left = (e & kEdgeLeft) && x_loc == 0;
+    right = (e & kEdgeRight) && x_loc + kLane == w;
+  }
+  int d1, d2, d3, u1, u2, u3;
+  if constexpr (EDGES) {
+    d1 = min(1, reach_d) * kPitch; d2 = min(2, reach_d) * kPitch;
+    d3 = min(3, reach_d) * kPitch;
+    u1 = min(1, reach_u) * kPitch; u2 = min(2, reach_u) * kPitch;
+    u3 = min(3, reach_u) * kPitch;
+  } else {
+    d1 = u1 = min(1, reach) * kPitch;
+    d2 = u2 = min(2, reach) * kPitch;
+    d3 = u3 = min(3, reach) * kPitch;
+  }
   int cur[12], wa[12], wb[12];
   int acc[kLane] = {0, 0, 0, 0};
   ld12(mid, cur);
+  if constexpr (EDGES) clamp_cols(cur, left, right);
   if constexpr (LUMA) {
-    const int o3 = min(3, reach) * kPitch;
-    ld4(mid + o3, wa);
-    ld4(mid - o3, wb);
+    ld4(mid + d3, wa);
+    ld4(mid - u3, wb);
     alf_slot<0, 0>(cf[0], cl[0], wa, wb, cur, acc);
   }
-  ld12(mid + o2, wa);
-  ld12(mid - o2, wb);
+  ld12(mid + d2, wa);
+  ld12(mid - u2, wb);
+  if constexpr (EDGES) {
+    clamp_cols(wa, left, right);
+    clamp_cols(wb, left, right);
+  }
   if constexpr (LUMA) {
     alf_slot<1, -1>(cf[1], cl[1], wa, wb, cur, acc);
     alf_slot<-1, 1>(cf[3], cl[3], wa, wb, cur, acc);
   }
   alf_slot<0, 0>(cf[2], cl[2], wa, wb, cur, acc);
-  ld12(mid + o1, wa);
-  ld12(mid - o1, wb);
+  ld12(mid + d1, wa);
+  ld12(mid - u1, wb);
+  if constexpr (EDGES) {
+    clamp_cols(wa, left, right);
+    clamp_cols(wb, left, right);
+  }
   if constexpr (LUMA) {
     alf_slot<2, -2>(cf[4], cl[4], wa, wb, cur, acc);
     alf_slot<-2, 2>(cf[8], cl[8], wa, wb, cur, acc);
@@ -405,59 +495,197 @@ alf_kernel(const AlfArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// CC-ALF.  Replaces ffvvc_tpu/ops/alf_device.py::_cc_pallas (body _cc_math)
-// in its fused form fused_device._cc_filter.
+// CC-ALF.  Replaces ffvvc_tpu/ops/alf_device.py::_cc_pallas (body _cc_math),
+// in its fused form fused_device._cc_filter and, with EDGES, over the planes
+// alf_device._AlfRasterizer._raster_cc builds.
 //
-// A 7-tap luma-to-chroma correction sum cf_j*(v_j - cur_luma) over the
-// pre-ALF luma at luma column (x << hs) and the virtual-boundary-resolved
-// rows rowsel[j][y] (row indices of the luma plane edge-padded by 3: the
-// kernel takes the border off and clamps row and column at the picture
-// edge instead of reading a padded copy), rounded with (acc + 64) >> 7,
-// clipped to [-half, half - 1], added to chroma and clipped.  Coefficients
-// are read per chroma CTB (cf: int32 [ch, cw, 7]) instead of the TPU
-// kernel's seven [H, W] coefficient planes and seven gathered tap planes.
-// One thread per sample, 32x8 threads a block.
+// A 7-tap luma-to-chroma correction sum cf_j * (v_j - cur_luma) over the
+// pre-ALF luma around luma column x << hs and row y << vs, rounded with
+// (acc + 64) >> 7, clipped to [-half, half - 1], added to chroma and clipped.
+// The TPU kernel read seven gathered tap planes and seven coefficient planes
+// per chroma plane.  Here:
+//  * Cb and Cr go through one launch, and one thread owns the same four
+//    positions in both: the seven differences depend on the luma alone, so
+//    they are computed once and multiplied into two coefficient sets;
+//  * a thread owns four neighbouring chroma samples of a 64x16 tile and
+//    reads the luma under them straight from device memory: of each of its
+//    four luma rows the 4 << hs columns in one 16-byte (hs = 1) or 8-byte
+//    load, of the two middle rows also the column before and, for hs = 0,
+//    the column after; rows and these two columns clamp at the picture
+//    edge.  Each luma row serves two chroma rows of the tile, the second
+//    time from the L1.  (A luma tile staged in shared memory, as SAO and
+//    ALF stage theirs, took 5.6 us for both 540x960 planes on an H100
+//    against 3.3 us: a thread reads each luma sample at most twice, too few
+//    times to pay for the staging and the barrier.)  The chroma comes with
+//    one 8-byte load a plane and goes with one 8-byte store a plane;
+//  * the tap rows come from the row number: with pos = (y mod CTB height)
+//    << vs and d = pos - (CTB size - 4), rows r0..r3 = pos - 1, pos, pos + 1,
+//    pos + 2; for d in {-2, 1} r3 = r2; for d in {-1, 0} all four are pos;
+//    in 4:4:4 and 4:2:2 (vs = 0) the rows d in {0, 1} get no correction
+//    (alf.py _filter_cc).  No row table is read;
+//  * coefficients are taken by index: the per-CTB set of each plane
+//    ([ch, cw]) into its [sets, 7] table; a block copies those of the at most
+//    four CTBs its tile touches into shared memory;
+//  * EDGES: rows and columns are clamped to the thread's luma CTB on the
+//    sides its edge word names, after the row substitution.
 // ---------------------------------------------------------------------------
 
-constexpr int kCcBlockX = 32;
-constexpr int kCcBlockY = 8;
-constexpr int kLumaBorder = 3;   // alf.ALF_BORDER_LUMA, the base of rowsel
+constexpr int kCcTaps = 7;
 
-__global__ void cc_kernel(const short* __restrict__ dst,
-                          const short* __restrict__ luma, int H, int W,
-                          const int64_t* __restrict__ rowsel,
-                          const int* __restrict__ skip,
-                          const int* __restrict__ cf, int cw, int log2_cs_v,
-                          int log2_cs_h, int hs, int half, int pix_max,
-                          int Hc, int Wc, short* __restrict__ out) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= Wc || y >= Hc) return;
-  int acc = 0;
-  if (skip[y] == 0) {
-    const short* r[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      r[j] = luma + (int64_t)clampi((int)rowsel[(int64_t)j * Hc + y] -
-                                        kLumaBorder, 0, H - 1) * W;
-    const int xl = x << hs;
-    const int xm = max(xl - 1, 0), xp = min(xl + 1, W - 1);
-    const int* c = cf + ((y >> log2_cs_v) * cw + (x >> log2_cs_h)) * 7;
-    const int cur = r[1][xl];
-    acc = c[0] * (r[0][xl] - cur) + c[1] * (r[1][xm] - cur) +
-          c[2] * (r[1][xp] - cur) + c[3] * (r[2][xm] - cur) +
-          c[4] * (r[2][xl] - cur) + c[5] * (r[2][xp] - cur) +
-          c[6] * (r[3][xl] - cur);
+struct CcArgs {
+  const short* luma;       // [H, W] pre-ALF luma
+  const short* dst[2];     // [Hc, Wc] chroma planes
+  short* out[2];
+  const int* set[2];       // int32 [ch, cw] coefficient set of each CTB
+  const int* cf[2];        // int32 [sets, 7]
+  const int* edges;        // EDGES: int32 [ch, cw] edge word of each CTB
+  int n, H, W, Hc, Wc, cw, log2_cs_v, log2_cs_h, half, pix_max;
+};
+
+// w[4 + i] = row[lx + i] for the 4 << HS luma columns under a thread's four
+// chroma samples, one 16-byte (HS = 1) or 8-byte (HS = 0) load; with SIDES
+// also the column before (w[3]) and, for HS = 0, the column after (w[8]),
+// clamped to the picture
+template <int HS, bool SIDES>
+__device__ __forceinline__ void cc_load_row(const short* __restrict__ row,
+                                            int lx, int W, int (&w)[12]) {
+  if constexpr (HS == 1) {
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(row + lx));
+    w[4] = (short)(q.x & 0xffff); w[5] = (int)q.x >> 16;
+    w[6] = (short)(q.y & 0xffff); w[7] = (int)q.y >> 16;
+    w[8] = (short)(q.z & 0xffff); w[9] = (int)q.z >> 16;
+    w[10] = (short)(q.w & 0xffff); w[11] = (int)q.w >> 16;
+  } else {
+    const uint2 q = __ldg(reinterpret_cast<const uint2*>(row + lx));
+    w[4] = (short)(q.x & 0xffff); w[5] = (int)q.x >> 16;
+    w[6] = (short)(q.y & 0xffff); w[7] = (int)q.y >> 16;
+    if constexpr (SIDES) w[8] = __ldg(row + min(lx + 4, W - 1));
   }
-  acc = clampi((acc + 64) >> 7, -half, half - 1);
-  out[y * Wc + x] = (short)clampi(dst[y * Wc + x] + acc, 0, pix_max);
+  if constexpr (SIDES) w[3] = __ldg(row + max(lx - 1, 0));
+}
+
+template <int HS, int VS, bool EDGES>
+__global__ void __launch_bounds__(kThreadsX * kTileH)
+cc_kernel(const CcArgs a) {
+  const int x0 = blockIdx.x * kTileW, y0 = blockIdx.y * kTileH;   // chroma
+  __shared__ int s_cf[2][kMaxCtbCols][kCcTaps + 1];
+  __shared__ int s_edge[kMaxCtbCols];
+  // the tile's rows lie in one CTB row: a chroma CTB is at least 16 high
+  const int cx0 = x0 >> a.log2_cs_h, cy = y0 >> a.log2_cs_v;
+  const int tid = threadIdx.y * kThreadsX + threadIdx.x;
+  if (tid < 2 * kMaxCtbCols * kCcTaps) {
+    // thread -> (plane, CTB column of the tile, coefficient)
+    const int p = tid / (kMaxCtbCols * kCcTaps);
+    const int q = tid - p * (kMaxCtbCols * kCcTaps);
+    const int j = q / kCcTaps, r = q - j * kCcTaps;
+    if (p < a.n && cx0 + j < a.cw) {
+      const int* set = p ? a.set[1] : a.set[0];
+      const int* cf = p ? a.cf[1] : a.cf[0];
+      s_cf[p][j][r] = __ldg(cf + set[cy * a.cw + cx0 + j] * kCcTaps + r);
+    }
+  }
+  if constexpr (EDGES) {
+    if (tid >= 128 && tid < 128 + kMaxCtbCols) {
+      const int j = tid - 128;
+      s_edge[j] = cx0 + j < a.cw ? a.edges[cy * a.cw + cx0 + j] : 0;
+    }
+  }
+  __syncthreads();
+  const int x = x0 + kLane * threadIdx.x, y = y0 + threadIdx.y;
+  if (x >= a.Wc || y >= a.Hc) return;
+  const int j = (x >> a.log2_cs_h) - cx0;
+  const int y_loc = y & ((1 << a.log2_cs_v) - 1);
+  const int pos = y_loc << VS;             // row within the luma CTB
+  const int d = pos - (((1 << a.log2_cs_v) << VS) - 4);
+  const bool flat = d == -1 || d == 0;
+  const bool skip = VS == 0 && (d == 0 || d == 1);
+  // rows above (up) and below (dn1, dn2) the luma row that the taps read
+  int up = flat ? 0 : 1, dn1 = up;
+  int dn2 = flat ? 0 : (d == -2 || d == 1) ? 1 : 2;
+  bool left = false, right = false;
+  if constexpr (EDGES) {
+    const int e = s_edge[j];
+    const int x_loc = x & ((1 << a.log2_cs_h) - 1);
+    const int w = min(1 << a.log2_cs_h, a.Wc - (x - x_loc));
+    // luma rows of the CTB inside the picture
+    const int h = min((1 << a.log2_cs_v) << VS, a.H - ((y - y_loc) << VS));
+    if (e & kEdgeTop) up = min(up, pos);
+    if (e & kEdgeBottom) {
+      dn1 = min(dn1, h - 1 - pos);
+      dn2 = min(dn2, h - 1 - pos);
+    }
+    left = (e & kEdgeLeft) && x_loc == 0;
+    // with hs = 1 the last tap column 2x + 1 is the CTB's last luma column
+    right = HS == 0 && (e & kEdgeRight) && x_loc + kLane == w;
+  }
+  // w1[4 + (k << HS) + dx]: luma at offset dx from the thread's k-th sample
+  int w0[12], w1[12], w2[12], w3[12];
+  {
+    const int lx = x << HS, ly = y << VS;
+    auto row = [&](int r) {
+      return a.luma + (int64_t)clampi(r, 0, a.H - 1) * a.W;
+    };
+    cc_load_row<HS, false>(row(ly - up), lx, a.W, w0);
+    cc_load_row<HS, true>(row(ly), lx, a.W, w1);
+    cc_load_row<HS, true>(row(ly + dn1), lx, a.W, w2);
+    cc_load_row<HS, false>(row(ly + dn2), lx, a.W, w3);
+  }
+  if constexpr (EDGES) {
+    if (left) w1[3] = w1[4], w2[3] = w2[4];
+    if (right) w1[8] = w1[7], w2[8] = w2[7];
+  }
+  int t[kLane][kCcTaps];
+#pragma unroll
+  for (int k = 0; k < kLane; ++k) {
+    const int c = 4 + (k << HS), cur = w1[c];
+    t[k][0] = w0[c] - cur;
+    t[k][1] = w1[c - 1] - cur;
+    t[k][2] = w1[c + 1] - cur;
+    t[k][3] = w2[c - 1] - cur;
+    t[k][4] = w2[c] - cur;
+    t[k][5] = w2[c + 1] - cur;
+    t[k][6] = w3[c] - cur;
+  }
+  const int64_t at = (int64_t)y * a.Wc + x;
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    if (p >= a.n) break;
+    const int* cf = s_cf[p][j];
+    const uint2 q = *reinterpret_cast<const uint2*>(
+        (p ? a.dst[1] : a.dst[0]) + at);
+    const int chroma[kLane] = {(short)(q.x & 0xffff), (int)q.x >> 16,
+                               (short)(q.y & 0xffff), (int)q.y >> 16};
+    int out[kLane];
+#pragma unroll
+    for (int k = 0; k < kLane; ++k) {
+      int acc = 0;
+      if (!skip) {
+#pragma unroll
+        for (int i = 0; i < kCcTaps; ++i) acc += cf[i] * t[k][i];
+      }
+      acc = clampi((acc + 64) >> 7, -a.half, a.half - 1);
+      out[k] = clampi(chroma[k] + acc, 0, a.pix_max);
+    }
+    store4((p ? a.out[1] : a.out[0]) + at, out);
+  }
+}
+
+template <int HS, int VS>
+int launch_cc(const CcArgs& a, cudaStream_t stream) {
+  const dim3 grid(cdiv(a.Wc, kTileW), cdiv(a.Hc, kTileH));
+  const dim3 block(kThreadsX, kTileH);
+  if (a.edges)
+    cc_kernel<HS, VS, true><<<grid, block, 0, stream>>>(a);
+  else
+    cc_kernel<HS, VS, false><<<grid, block, 0, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// ptrs: [3n] (src, dst, prm) of each plane; dims: [6n] (H, W, ch, cw,
+// ptrs: [3n] (src, dst, prm [11, ch, cw]) of each plane; dims: [6n] (H, W, ch, cw,
 // log2_cs_v, log2_cs_h) of each plane; both host arrays.
 int ffvvc_sao(int n, const void* const* ptrs, const int* dims, int shift,
               int pix_max, void* stream) {
@@ -489,10 +717,11 @@ int ffvvc_sao(int n, const void* const* ptrs, const int* dims, int shift,
   return (int)cudaGetLastError();
 }
 
+// edges: the per-CTB edge words, or null for a picture without clamped CTBs
 int ffvvc_alf_luma(const void* src, void* out, int H, int W, const void* ci,
                    const void* ti, const void* ctb_set, int cw,
-                   const void* cf, const void* cl, int log2_cs, int pix_max,
-                   void* stream) {
+                   const void* cf, const void* cl, const void* edges,
+                   int log2_cs, int pix_max, void* stream) {
   AlfArgs a;
   a.p[0] = AlfPlane{(const short*)src, (short*)out, (const int*)ctb_set,
                     (const int*)cf, (const int*)cl};
@@ -505,15 +734,21 @@ int ffvvc_alf_luma(const void* src, void* out, int H, int W, const void* ci,
   a.log2_cs_v = a.log2_cs_h = log2_cs;
   a.vb_pos = (1 << log2_cs) - 4;   // alf.ALF_VB_POS_ABOVE_LUMA
   a.pix_max = pix_max;
-  alf_kernel<true><<<dim3(cdiv(W, kTileW), cdiv(H, kTileH), 1),
-                     dim3(kThreadsX, kTileH), 0, (cudaStream_t)stream>>>(a);
+  const dim3 grid(cdiv(W, kTileW), cdiv(H, kTileH), 1);
+  const dim3 block(kThreadsX, kTileH);
+  if (edges)
+    alf_kernel<true, true><<<grid, block, 0, (cudaStream_t)stream>>>(
+        a, (const int*)edges);
+  else
+    alf_kernel<true, false><<<grid, block, 0, (cudaStream_t)stream>>>(
+        a, (const int*)edges);
   return (int)cudaGetLastError();
 }
 
 // ptrs: [5n] (src, out, set, cf, cl) of each chroma plane, a host array.
-int ffvvc_alf_chroma(int n, const void* const* ptrs, int H, int W, int cw,
-                     int log2_cs_v, int log2_cs_h, int pix_max,
-                     void* stream) {
+int ffvvc_alf_chroma(int n, const void* const* ptrs, const void* edges, int H,
+                     int W, int cw, int log2_cs_v, int log2_cs_h,
+                     int pix_max, void* stream) {
   AlfArgs a;
   for (int z = 0; z < 2; ++z) {
     const void* const* q = ptrs + 5 * (z < n ? z : 0);
@@ -528,21 +763,48 @@ int ffvvc_alf_chroma(int n, const void* const* ptrs, int H, int W, int cw,
   a.log2_cs_h = log2_cs_h;
   a.vb_pos = (1 << log2_cs_v) - 2;   // alf.ALF_VB_POS_ABOVE_CHROMA
   a.pix_max = pix_max;
-  alf_kernel<false><<<dim3(cdiv(W, kTileW), cdiv(H, kTileH), n),
-                      dim3(kThreadsX, kTileH), 0, (cudaStream_t)stream>>>(a);
+  const dim3 grid(cdiv(W, kTileW), cdiv(H, kTileH), n);
+  const dim3 block(kThreadsX, kTileH);
+  if (edges)
+    alf_kernel<false, true><<<grid, block, 0, (cudaStream_t)stream>>>(
+        a, (const int*)edges);
+  else
+    alf_kernel<false, false><<<grid, block, 0, (cudaStream_t)stream>>>(
+        a, (const int*)edges);
   return (int)cudaGetLastError();
 }
 
-int ffvvc_cc(const void* dst, const void* luma, int H, int W,
-             const void* rowsel, const void* skip, const void* cf, int cw,
-             int log2_cs_v, int log2_cs_h, int hs, int half, int pix_max,
-             int Hc, int Wc, void* out, void* stream) {
-  cc_kernel<<<dim3(cdiv(Wc, kCcBlockX), cdiv(Hc, kCcBlockY)),
-              dim3(kCcBlockX, kCcBlockY), 0, (cudaStream_t)stream>>>(
-      (const short*)dst, (const short*)luma, H, W, (const int64_t*)rowsel,
-      (const int*)skip, (const int*)cf, cw, log2_cs_v, log2_cs_h, hs, half,
-      pix_max, Hc, Wc, (short*)out);
-  return (int)cudaGetLastError();
+// ptrs: [4n] (dst, out, set, cf) of each chroma plane, a host array; luma
+// [H, W]; chroma [Hc, Wc] with CTBs of (1 << log2_cs_v) x (1 << log2_cs_h)
+// chroma samples; (hs, vs) is (1, 1), (1, 0) or (0, 0).
+int ffvvc_cc(int n, const void* const* ptrs, const void* luma,
+             const void* edges, int H, int W, int Hc, int Wc, int cw,
+             int log2_cs_v, int log2_cs_h, int hs, int vs, int half,
+             int pix_max, void* stream) {
+  CcArgs a;
+  for (int z = 0; z < 2; ++z) {
+    const void* const* q = ptrs + 4 * (z < n ? z : 0);
+    a.dst[z] = (const short*)q[0];
+    a.out[z] = (short*)q[1];
+    a.set[z] = (const int*)q[2];
+    a.cf[z] = (const int*)q[3];
+  }
+  a.luma = (const short*)luma;
+  a.edges = (const int*)edges;
+  a.n = n;
+  a.H = H;
+  a.W = W;
+  a.Hc = Hc;
+  a.Wc = Wc;
+  a.cw = cw;
+  a.log2_cs_v = log2_cs_v;
+  a.log2_cs_h = log2_cs_h;
+  a.half = half;
+  a.pix_max = pix_max;
+  if (hs == 1 && vs == 1) return launch_cc<1, 1>(a, (cudaStream_t)stream);
+  if (hs == 1 && vs == 0) return launch_cc<1, 0>(a, (cudaStream_t)stream);
+  if (hs == 0 && vs == 0) return launch_cc<0, 0>(a, (cudaStream_t)stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -14,9 +14,12 @@ kept diffable line by line against it, with the device half in PyTorch:
     own transforms run); the row-pipeline gate and the fused-chain gate
     test `device_pipeline`, and the fused chain is this package's
     (`ops/fused_device.py`), run on `config.device`;
+  * the per-stage device filters (`device_lmcs`, `device_deblock`,
+    `device_sao`, `device_alf`) are this package's (`ops/lmcs_device.py`,
+    `deblock_device.py`, `sao_device.py`, `alf_device.py`), run on
+    `config.device`;
   * the branches of the toggles the port refuses (`device_mc`,
-    `device_intra`, `device_lmcs`, `device_deblock`, `device_sao`,
-    `device_alf`) are removed: `DecoderConfig` raises on them.
+    `device_intra`) are removed: `DecoderConfig` raises on them.
 """
 from __future__ import annotations
 
@@ -691,7 +694,10 @@ class VVCDecoder:
             # frame can overlap its MC with this frame's filters: all-
             # intra streams keep the (stage-threaded) whole-frame passes
             if (cfg.row_progress and cfg.pipeline_frames
-                    and self._seen_inter and not cfg.device_pipeline):
+                    and self._seen_inter and
+                    not (cfg.device_deblock or
+                         cfg.device_sao or cfg.device_alf or
+                         cfg.device_lmcs or cfg.device_pipeline)):
                 if self._pixel_stages_rows(frame, sps, pps, tabs, fb,
                                            recon_jobs, lmcs, sh_list,
                                            alf_list):
@@ -749,40 +755,62 @@ class VVCDecoder:
             # LMCS inverse mapping (stage before deblock, vvc_thread.c:44,
             # ff_vvc_lmcs_filter vvc_filter.c:1322)
             if lmcs is not None:
-                ctb = sps.ctb_size_y
-                for rec, ctus in recon_jobs:
-                    if not rec.lmcs_used:
-                        continue
-                    for rs, rx, ry in ctus:
-                        x0, y0 = rx * ctb, ry * ctb
-                        x1 = min(x0 + ctb, pps.width)
-                        y1 = min(y0 + ctb, pps.height)
-                        blk = fb.planes[0][y0:y1, x0:x1]
-                        blk[:] = lmcs.inv_lut[blk]
+                if self.config.device_lmcs:
+                    from .ops.lmcs_device import lmcs_frame_device
+                    lmcs_frame_device(sps, pps, fb, lmcs, recon_jobs,
+                                      cfg.device)
+                else:
+                    ctb = sps.ctb_size_y
+                    for rec, ctus in recon_jobs:
+                        if not rec.lmcs_used:
+                            continue
+                        for rs, rx, ry in ctus:
+                            x0, y0 = rx * ctb, ry * ctb
+                            x1 = min(x0 + ctb, pps.width)
+                            y1 = min(y0 + ctb, pps.height)
+                            blk = fb.planes[0][y0:y1, x0:x1]
+                            blk[:] = lmcs.inv_lut[blk]
             _stage("lmcs")
             # in-loop filters (whole-frame passes per spec 8.8)
-            from .deblock import Deblocker
-            from .threads import resolve
-            db = Deblocker(sps, pps, tabs, fb)
-            db.slice_rpls = frame.slice_rpls
-            db.n_threads = resolve(self.config.stage_threads)
-            db.deblock_frame()
+            done = False
+            if self.config.device_deblock:
+                from .ops.deblock_device import deblock_frame_device
+                done = deblock_frame_device(sps, pps, tabs, fb,
+                                            frame.slice_rpls, cfg.device)
+            if not done:
+                from .deblock import Deblocker
+                from .threads import resolve
+                db = Deblocker(sps, pps, tabs, fb)
+                db.slice_rpls = frame.slice_rpls
+                db.n_threads = resolve(self.config.stage_threads)
+                db.deblock_frame()
             _stage("deblock")
-            from .sao import SaoFilter
-            sf = SaoFilter(sps, pps, tabs, fb)
-            sf.n_threads = resolve(self.config.stage_threads)
-            sf.sao_frame()
+            if self.config.device_sao:
+                from .ops.sao_device import sao_frame_device
+                sao_frame_device(sps, pps, tabs, fb, cfg.device)
+            else:
+                from .sao import SaoFilter
+                from .threads import resolve
+                sf = SaoFilter(sps, pps, tabs, fb)
+                sf.n_threads = resolve(self.config.stage_threads)
+                sf.sao_frame()
             if alf_list is not None:
-                done = False
-                if self.config.native_alf:
-                    from .native.alf import alf_frame_native
-                    done = alf_frame_native(
-                        sps, pps, tabs, fb, sh_list, alf_list,
-                        resolve(self.config.stage_threads))
-                if not done:
-                    from .alf import AlfFilter
-                    AlfFilter(sps, pps, tabs, fb, sh_list,
-                              alf_list).alf_frame()
+                if self.config.device_alf:
+                    from .ops.alf_device import alf_frame_device
+                    alf_frame_device(sps, pps, tabs, fb, sh_list,
+                                     alf_list, cfg.device)
+                else:
+                    done = False
+                    if self.config.native_alf:
+                        from .native.alf import alf_frame_native
+                        from .threads import resolve
+                        done = alf_frame_native(
+                            sps, pps, tabs, fb, sh_list, alf_list,
+                            resolve(self.config.stage_threads))
+                    if not done:
+                        from .alf import AlfFilter
+                        AlfFilter(sps, pps, tabs, fb, sh_list,
+                                  alf_list).alf_frame()
             _stage("sao_alf")
             if dph is not None and self.config.verify_picture_hash:
                 self._check_picture_hash(frame, dph)

@@ -5,9 +5,10 @@ One scheme for the host half's C libraries (gcc, this module's
 compiled from sources of this package into the git-ignored
 `ffvvc_tpu_torch/build/`, named by a hash of its sources, headers and
 compiler flags, so an edited source rebuilds and an unchanged one loads the
-existing file.  The compiler writes to a temporary name that is then moved
-into place, so concurrent processes (test workers) may race to build the
-same library and each ends up loading a whole file.
+existing file.  The compiler writes to a temporary name, which is then
+linked to the library's name unless that exists by now: concurrent
+processes (test workers) may race to build the same library, the first
+whole file stays, and a file that a process has loaded is never replaced.
 
 A missing compiler or a failed build raises RuntimeError with the
 compiler's output; nothing falls back to another implementation.
@@ -58,7 +59,11 @@ def build_shared(compiler, flags, sources, headers, stem, build_dir):
         raise RuntimeError(
             f"{os.path.basename(compiler)} failed ({r.returncode}) building "
             f"lib{stem} from {' '.join(sources)}:\n{r.stderr}{r.stdout}")
-    os.replace(tmp, out)
+    try:
+        os.link(tmp, out)
+    except FileExistsError:     # another process was first: load its file
+        pass
+    os.unlink(tmp)
     build_seconds[stem] = time.monotonic() - t0
     return out
 

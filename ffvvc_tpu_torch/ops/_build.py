@@ -32,14 +32,16 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # n, ptrs [3n], dims [6n], shift, pix_max, stream
     "ffvvc_sao": [_I, _P, _P, _I, _I, _P],
-    # src, out, H, W, ci, ti, ctb_set, cw, cf, cl, log2_cs, pix_max, stream
-    "ffvvc_alf_luma": [_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I, _P],
-    # n, ptrs [5n], H, W, cw, log2_cs_v, log2_cs_h, pix_max, stream
-    "ffvvc_alf_chroma": [_I, _P, _I, _I, _I, _I, _I, _I, _P],
-    # dst, luma, H, W, rowsel, skip, cf, cw, log2_cs_v, log2_cs_h, hs, half,
-    # pix_max, Hc, Wc, out, stream
-    "ffvvc_cc": [_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                 _P, _P],
+    # src, out, H, W, ci, ti, ctb_set, cw, cf, cl, edges, log2_cs, pix_max,
+    # stream
+    "ffvvc_alf_luma": [_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I,
+                       _P],
+    # n, ptrs [5n], edges, H, W, cw, log2_cs_v, log2_cs_h, pix_max, stream
+    "ffvvc_alf_chroma": [_I, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # n, ptrs [4n], luma, edges, H, W, Hc, Wc, cw, log2_cs_v, log2_cs_h, hs,
+    # vs, half, pix_max, stream
+    "ffvvc_cc": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                 _P],
 }
 
 _lock = threading.Lock()

@@ -1,20 +1,28 @@
-"""ALF and CC-ALF of the fused chain: CUDA kernel wrappers and plain versions.
+"""Device ALF and CC-ALF: CUDA kernel wrappers, plain versions, entry point.
 
 `alf_filter_luma` and `alf_filter_chroma` replace
-`ffvvc_tpu/ops/alf_device.py::_alf_pallas` in its fused form
-(`ffvvc_tpu/ops/fused_device.py::_alf_filter_plane`): the clipped 7x7 (luma)
-or 5x5 (chroma) diamond with virtual-boundary row substitution.  `cc_filter`
-replaces `_cc_pallas` in its fused form (`fused_device._cc_filter`): the
-7-tap luma-to-chroma correction.
+`ffvvc_tpu/ops/alf_device.py::_alf_pallas`: the clipped 7x7 (luma) or 5x5
+(chroma) diamond with virtual-boundary row substitution.  `cc_filter`
+replaces `_cc_pallas`: the 7-tap luma-to-chroma correction, both chroma
+planes in one call.
 
 All take and return 16-bit samples, read the unpadded plane (coordinates
 clamp at the picture edge) and take their coefficients by index: luma ALF
 the per-4x4 class and transpose indices, the per-CTB filter set and the
 [sets, 25, 12] tables; chroma ALF the per-CTB set and [sets, 12] tables, both
-chroma planes in one call; CC-ALF per-CTB coefficients.  The ALF tap rows at
-a virtual boundary are computed from the row number (`vb_reach`).  On CUDA
-tensors each wrapper launches its kernel in csrc/filters.cu; on CPU tensors
-it runs its `*_ref` version, the same integer math in plain PyTorch.
+chroma planes in one call; CC-ALF the per-CTB set and [sets, 7] tables.  The
+tap rows at a virtual boundary are computed from the row number (`vb_reach`,
+`cc_row_offsets`).  With `edges`, an int32 [ch, cw] word per CTB (`EDGE_*`
+bits, `ctb_edges`), every tap is taken from the CTB's own window: where a
+bit is set the tap's coordinate is clamped to the CTB on that side
+(`AlfFilter._window` of the golden model), after the virtual-boundary
+substitution.  On CUDA tensors each wrapper launches its kernel in
+csrc/filters.cu; on CPU tensors it runs its `*_ref` version, the same
+integer math in plain PyTorch.
+
+`alf_frame_device` is the per-stage entry point (`DecoderConfig.device_alf`,
+`ffvvc_tpu/ops/alf_device.py::alf_frame_device`), which also filters
+pictures whose slices or tiles forbid filtering across their boundaries.
 """
 from __future__ import annotations
 
@@ -23,11 +31,11 @@ import ctypes
 import numpy as np
 import torch
 
-from ..alf import (ALF_BORDER_LUMA, ALF_VB_POS_ABOVE_CHROMA,
-                   ALF_VB_POS_ABOVE_LUMA, _TRANSPOSE_IDX)
+from ..alf import (ALF_VB_POS_ABOVE_CHROMA, ALF_VB_POS_ABOVE_LUMA, AlfFilter,
+                   _TRANSPOSE_IDX)
 
 from . import _build
-from .sao_device import MIN_CTB, _log2, expand_ctb, pad_edge, stream_of
+from .sao_device import MIN_CTB, _log2, as_wire, expand_ctb, stream_of
 
 # luma 7x7-diamond tap geometry: (row_key_a, dx_a, row_key_b, dx_b) per
 # coefficient, row keys indexing the VB-resolved row planes 0..6
@@ -44,43 +52,14 @@ _CHROMA_SLOT = (2, 5, 6, 7, 10, 11)
 _CC_TAPS = ((0, 0), (1, -1), (1, 1), (2, -1), (2, 0), (2, 1), (3, 0))
 
 
-def _vb_row_offsets(h, vb_pos, is_luma):
-    """VB-resolved row-plane offsets o[k][y] for k = 0..6 (alf.py
-    _filter_luma/_filter_chroma row-substitution), vectorized over y.
-    The outer gating ranges differ: luma [vb-4, vb) / [vb, vb+3], chroma
-    [vb-2, vb) / [vb, vb+1]; the inner substitutions are identical."""
-    ys = np.arange(h)
-    o = np.broadcast_to(np.array([0, 1, -1, 2, -2, 3, -3])[:, None],
-                        (7, h)).copy()
-    below_lo = vb_pos - (4 if is_luma else 2)
-    above_hi = vb_pos + (3 if is_luma else 1)
-    bel = (ys >= below_lo) & (ys < vb_pos)
-    abv = (ys >= vb_pos) & (ys <= above_hi)
-    m = bel & (ys == vb_pos - 1)
-    o[1][m] = 0
-    o[2][m] = 0
-    m = bel & (ys >= vb_pos - 2)
-    o[3][m] = o[1][m]
-    o[4][m] = o[2][m]
-    m = bel & (ys >= vb_pos - 3)
-    o[5][m] = o[3][m]
-    o[6][m] = o[4][m]
-    m = abv & (ys == vb_pos)
-    o[2][m] = 0
-    o[1][m] = 0
-    m = abv & (ys <= vb_pos + 1)
-    o[4][m] = o[2][m]
-    o[3][m] = o[1][m]
-    m = abv & (ys <= vb_pos + 2)
-    o[6][m] = o[4][m]
-    o[5][m] = o[3][m]
-    return o
+# bits of a CTB's edge word: no tap from beyond that side of the CTB
+EDGE_LEFT, EDGE_TOP, EDGE_RIGHT, EDGE_BOTTOM = 1, 2, 4, 8
 
 
 def vb_reach(ys, cs_v, vb_pos):
     """How far a tap row may lie from row y at the virtual boundary of its
-    CTB row: every offset of `_vb_row_offsets` is its nominal one clamped
-    to +-reach (a substituted row is always a nearer one).  With
+    CTB row: every offset of the JAX package's `_vb_row_offsets` is its
+    nominal one clamped to +-reach (a substituted row is always a nearer one).  With
     d = (y mod cs_v) - vb_pos: 0 for d in {-1, 0} (the rows that round
     with >>10), 1 for {-2, 1}, 2 for {-3, 2}, else 3.  ys: int tensor of
     picture rows."""
@@ -92,28 +71,50 @@ def vb_reach(ys, cs_v, vb_pos):
     return reach
 
 
+def _window_bounds(edges, cs_v, cs_h, H, W, sv=0, sh=0):
+    """Per-sample bounds (xlo, xhi, ylo, yhi) of the coordinates a tap may
+    take: the picture, or the sample's own CTB on the sides its edge word
+    names.  edges: int32 [ch, cw] over CTBs of cs_v x cs_h samples of an
+    [H, W] plane, or None (then the bounds are the picture's, as ints).
+    With sv/sh the bounds are those of a plane subsampled by these shifts
+    against the one the taps are read from ([H << sv, W << sh]): CC-ALF's
+    luma under a chroma sample."""
+    if edges is None:
+        return 0, (W << sh) - 1, 0, (H << sv) - 1
+    dev = edges.device
+    e = expand_ctb(edges, cs_v, cs_h, H, W)
+    xs = torch.arange(W, device=dev)[None, :]
+    ys = torch.arange(H, device=dev)[:, None]
+    x0, y0 = xs - (xs & (cs_h - 1)), ys - (ys & (cs_v - 1))
+    x1 = torch.clamp(x0 + cs_h, max=W)
+    y1 = torch.clamp(y0 + cs_v, max=H)
+    return (torch.where(e & EDGE_LEFT != 0, x0 << sh, 0),
+            torch.where(e & EDGE_RIGHT != 0, x1 << sh, W << sh) - 1,
+            torch.where(e & EDGE_TOP != 0, y0 << sv, 0),
+            torch.where(e & EDGE_BOTTOM != 0, y1 << sv, H << sv) - 1)
+
+
 # ---- ALF --------------------------------------------------------------------
 
 def alf_filter_plane_ref(src, cf_blk, cl_blk, blk_h, blk_w, slots, cs_v,
-                         vb_pos, pix_max):
-    """Plain PyTorch clipped-diamond ALF (`fused_device._alf_filter_plane`)
-    of one plane.  src: int16 [H, W]; cf_blk/cl_blk: int32 [nby, nbx, 12]
-    per block of blk_h x blk_w samples; slots: the tap slots in use;
-    cs_v: CTB height in the plane's rows; vb_pos: the virtual boundary's
-    row within a CTB row."""
+                         cs_h, vb_pos, pix_max, edges=None):
+    """Plain PyTorch clipped-diamond ALF of one plane
+    (`fused_device._alf_filter_plane` of the JAX package, and with `edges`
+    `_alf_pallas` over `_AlfRasterizer`'s planes).  src: int16 [H, W];
+    cf_blk/cl_blk: int32 [nby, nbx, 12] per block of blk_h x blk_w samples;
+    slots: the tap slots in use; cs_v x cs_h: CTB size in the plane's
+    samples; vb_pos: the virtual boundary's row within a CTB row."""
     H, W = src.shape
     cur = src.to(torch.int32)
     ys = torch.arange(H, device=src.device)
     xs = torch.arange(W, device=src.device)
     reach = vb_reach(ys, cs_v, vb_pos)
-    rows = {}           # row planes of the taps in use
+    xlo, xhi, ylo, yhi = _window_bounds(edges, cs_v, cs_h, H, W)
 
     def at(k, dx):
-        if k not in rows:
-            o = _ROW_OFFSET[k]
-            o = torch.clamp(torch.full_like(reach, o), -reach, reach)
-            rows[k] = cur.index_select(0, torch.clamp(ys + o, 0, H - 1))
-        return rows[k].index_select(1, torch.clamp(xs + dx, 0, W - 1))
+        o = torch.clamp(torch.full_like(reach, _ROW_OFFSET[k]), -reach, reach)
+        return cur[torch.clamp((ys + o)[:, None], ylo, yhi),
+                   torch.clamp((xs + dx)[None, :], xlo, xhi)]
 
     def px(a):
         return expand_ctb(a, blk_h, blk_w, H, W)
@@ -129,29 +130,32 @@ def alf_filter_plane_ref(src, cf_blk, cl_blk, blk_h, blk_w, slots, cs_v,
     return torch.clamp(cur + acc, 0, pix_max).to(torch.int16)
 
 
-def alf_filter_luma_ref(src, ci, ti, ctb_set, cf_tab, cl_tab, cs, pix_max):
+def alf_filter_luma_ref(src, ci, ti, ctb_set, cf_tab, cl_tab, cs, pix_max,
+                        edges=None):
     """Plain PyTorch luma ALF.  src: int16 [H, W]; ci/ti: int32
     [H / 4, W / 4] class and transpose index of each 4x4 block
     (`fused_device.alf_classify`); ctb_set: int32 [ch, cw] filter set of
-    each CTB of cs x cs samples; cf_tab/cl_tab: int32 [sets, 25, 12]."""
+    each CTB of cs x cs samples; cf_tab/cl_tab: int32 [sets, 25, 12];
+    edges: int32 [ch, cw] edge words, or None."""
     nby, nbx = ci.shape
     setidx = expand_ctb(ctb_set, cs // 4, cs // 4, nby, nbx).long()
     perm = torch.tensor(_TRANSPOSE_IDX, device=src.device)[ti.long()]
     cfb = torch.gather(cf_tab[setidx, ci.long()], 2, perm)
     clb = torch.gather(cl_tab[setidx, ci.long()], 2, perm)
-    return alf_filter_plane_ref(src, cfb, clb, 4, 4, range(12), cs,
-                                cs - ALF_VB_POS_ABOVE_LUMA, pix_max)
+    return alf_filter_plane_ref(src, cfb, clb, 4, 4, range(12), cs, cs,
+                                cs - ALF_VB_POS_ABOVE_LUMA, pix_max, edges)
 
 
 def alf_filter_chroma_ref(srcs, ctb_sets, cf_tabs, cl_tabs, cs_v, cs_h,
-                          pix_max):
+                          pix_max, edges=None):
     """Plain PyTorch chroma ALF of one or two planes of equal shape.  Per
     plane: src int16 [H, W], ctb_set int32 [ch, cw] and the tables
     cf_tab/cl_tab int32 [sets, 12] (the slots chroma does not use hold
-    cf 0); CTBs of cs_v x cs_h samples."""
+    cf 0); CTBs of cs_v x cs_h samples; edges: int32 [ch, cw] edge words
+    for both planes, or None."""
     return [alf_filter_plane_ref(
-        x, cf[s.long()], cl[s.long()], cs_v, cs_h, _CHROMA_SLOT, cs_v,
-        cs_v - ALF_VB_POS_ABOVE_CHROMA, pix_max)
+        x, cf[s.long()], cl[s.long()], cs_v, cs_h, _CHROMA_SLOT, cs_v, cs_h,
+        cs_v - ALF_VB_POS_ABOVE_CHROMA, pix_max, edges)
         for x, s, cf, cl in zip(srcs, ctb_sets, cf_tabs, cl_tabs)]
 
 
@@ -173,12 +177,28 @@ def _check_cuda(name, i16, i32):
            "planes must be 8-byte aligned")
 
 
-def alf_filter_luma(src, ci, ti, ctb_set, cf_tab, cl_tab, cs, pix_max):
+def _count(wrapper, edges):
+    wrapper.launches += 1
+    wrapper.edge_launches += edges is not None
+
+
+def _edge_ptr(name, edges, ch, cw):
+    """The kernel's argument for `edges`: its address, or None (a null
+    pointer: the variant without per-CTB clamps)."""
+    if edges is None:
+        return None
+    _check_cuda(name, (), (edges,))
+    _check(name, edges.shape == (ch, cw), "edges must be [ch, cw]")
+    return edges.data_ptr()
+
+
+def alf_filter_luma(src, ci, ti, ctb_set, cf_tab, cl_tab, cs, pix_max,
+                    edges=None):
     """Luma ALF: the CUDA kernel on CUDA tensors, `alf_filter_luma_ref`
     (same arguments) on CPU tensors.  Returns a new int16 [H, W]."""
     if src.device.type == "cpu":
         return alf_filter_luma_ref(src, ci, ti, ctb_set, cf_tab, cl_tab, cs,
-                                   pix_max)
+                                   pix_max, edges)
     name = "alf_filter_luma"
     _check_cuda(name, (src,), (ci, ti, ctb_set, cf_tab, cl_tab))
     H, W = src.shape
@@ -192,22 +212,21 @@ def alf_filter_luma(src, ci, ti, ctb_set, cf_tab, cl_tab, cs, pix_max):
     err = _build.lib().ffvvc_alf_luma(
         src.data_ptr(), out.data_ptr(), H, W, ci.data_ptr(), ti.data_ptr(),
         ctb_set.data_ptr(), cw, cf_tab.data_ptr(), cl_tab.data_ptr(),
-        _log2(cs, "cs"), pix_max, stream_of(src))
+        _edge_ptr(name, edges, ch, cw), _log2(cs, "cs"), pix_max,
+        stream_of(src))
     _build.check(err, "ffvvc_alf_luma")
-    alf_filter_luma.launches += 1
+    _count(alf_filter_luma, edges)
     return out
 
 
-alf_filter_luma.launches = 0
-
-
-def alf_filter_chroma(srcs, ctb_sets, cf_tabs, cl_tabs, cs_v, cs_h, pix_max):
+def alf_filter_chroma(srcs, ctb_sets, cf_tabs, cl_tabs, cs_v, cs_h, pix_max,
+                      edges=None):
     """Chroma ALF of one or two planes in one launch of the CUDA kernel on
     CUDA tensors, `alf_filter_chroma_ref` (same arguments) on CPU tensors.
     Returns new int16 [H, W] tensors."""
     if srcs[0].device.type == "cpu":
         return alf_filter_chroma_ref(srcs, ctb_sets, cf_tabs, cl_tabs, cs_v,
-                                     cs_h, pix_max)
+                                     cs_h, pix_max, edges)
     name = "alf_filter_chroma"
     n = len(srcs)
     _check(name, 1 <= n <= 2 and len(ctb_sets) == len(cf_tabs) ==
@@ -225,72 +244,170 @@ def alf_filter_chroma(srcs, ctb_sets, cf_tabs, cl_tabs, cs_v, cs_h, pix_max):
     ptrs = [t.data_ptr() for z in range(n)
             for t in (srcs[z], outs[z], ctb_sets[z], cf_tabs[z], cl_tabs[z])]
     err = _build.lib().ffvvc_alf_chroma(
-        n, (ctypes.c_void_p * len(ptrs))(*ptrs), H, W, cw,
-        _log2(cs_v, "cs_v"), _log2(cs_h, "cs_h"), pix_max,
-        stream_of(srcs[0]))
+        n, (ctypes.c_void_p * len(ptrs))(*ptrs),
+        _edge_ptr(name, edges, ch, cw), H, W, cw, _log2(cs_v, "cs_v"),
+        _log2(cs_h, "cs_h"), pix_max, stream_of(srcs[0]))
     _build.check(err, "ffvvc_alf_chroma")
-    alf_filter_chroma.launches += 1
+    _count(alf_filter_chroma, edges)
     return outs
-
-
-alf_filter_chroma.launches = 0
 
 
 # ---- CC-ALF -----------------------------------------------------------------
 
-def cc_filter_ref(dst, luma, rowsel, skip, cf_ctb, cs_v, cs_h, hs, half,
-                  pix_max):
-    """Plain PyTorch CC-ALF (`fused_device._cc_filter`).  dst: int16
-    [Hc, Wc] chroma; luma: int16 [H, W] pre-ALF luma; rowsel: int64
-    [4, Hc] rows r0..r3 of the luma plane edge-padded by 3; skip: int32
-    [Hc] (rows with no correction); cf_ctb: int32 [ch, cw, 7] per chroma
-    CTB of cs_v x cs_h."""
-    Hc, Wc = dst.shape
-    b = ALF_BORDER_LUMA
-    P3l = pad_edge(luma.to(torch.int32), b)
-    dst = dst.to(torch.int32)
-    r = [P3l.index_select(0, rowsel[j]) for j in range(4)]
+def cc_row_offsets(ys, cs_v, vs):
+    """CC-ALF's luma tap rows from the chroma row number (alf.py
+    `_filter_cc`; the JAX package builds them as a table, `_cc_arrays`).
+    ys: int tensor of chroma rows; cs_v: CTB height in chroma rows.  With
+    pos = (y mod cs_v) << vs and d = pos - ((cs_v << vs) - 4) the rows
+    r0..r3 are pos - 1, pos, pos + 1, pos + 2; for d in {-2, 1} r3 = r2; for
+    d in {-1, 0} all four are pos.  Returns (offsets [4, len(ys)] against
+    the luma row ys << vs, skip [len(ys)]: with vs = 0 the rows d in {0, 1}
+    get no correction)."""
+    d = ((ys & (cs_v - 1)) << vs) - ((cs_v << vs) - ALF_VB_POS_ABOVE_LUMA)
+    flat = (d == -1) | (d == 0)
+    one = torch.where(flat, 0, 1)
+    two = torch.where(flat, 0, torch.where((d == -2) | (d == 1), 1, 2))
+    skip = ((d == 0) | (d == 1)) if vs == 0 else torch.zeros_like(flat)
+    return torch.stack([-one, torch.zeros_like(one), one, two]), skip
 
-    def at(j, dx):      # luma cols (x << hs) + dx
-        return r[j][:, b + dx:b + dx + ((Wc - 1) << hs) + 1:1 << hs]
+
+def cc_filter_ref(dsts, luma, ctb_sets, cf_tabs, cs_v, cs_h, hs, vs, half,
+                  pix_max, edges=None):
+    """Plain PyTorch CC-ALF of one or two chroma planes
+    (`fused_device._cc_filter` of the JAX package, and with `edges`
+    `_cc_pallas` over `_AlfRasterizer._raster_cc`'s planes).  dsts: int16
+    [Hc, Wc] chroma planes; luma: int16 [Hc << vs, Wc << hs] pre-ALF luma;
+    per plane ctb_set int32 [ch, cw] and cf_tab int32 [sets, 7]; CTBs of
+    cs_v x cs_h chroma samples; edges: int32 [ch, cw] edge words, or
+    None."""
+    Hc, Wc = dsts[0].shape
+    wide = luma.to(torch.int32)
+    ys = torch.arange(Hc, device=luma.device)
+    xs = torch.arange(Wc, device=luma.device)
+    offs, skip = cc_row_offsets(ys, cs_v, vs)
+    xlo, xhi, ylo, yhi = _window_bounds(edges, cs_v, cs_h, Hc, Wc, vs, hs)
+
+    def at(j, dx):
+        return wide[torch.clamp(((ys << vs) + offs[j])[:, None], ylo, yhi),
+                    torch.clamp(((xs << hs) + dx)[None, :], xlo, xhi)]
     cur = at(1, 0)
-    acc = torch.zeros_like(dst)
-    for j, (rk, dx) in enumerate(_CC_TAPS):
-        cf = torch.where(skip[:, None] != 0, 0,
-                         expand_ctb(cf_ctb[:, :, j], cs_v, cs_h, Hc, Wc))
-        acc = acc + cf * (at(rk, dx) - cur)
-    acc = torch.clamp((acc + 64) >> 7, -half, half - 1)
-    return torch.clamp(dst + acc, 0, pix_max).to(torch.int16)
+    diffs = [at(rk, dx) - cur for rk, dx in _CC_TAPS]
+    outs = []
+    for dst, ctb_set, cf_tab in zip(dsts, ctb_sets, cf_tabs):
+        cf_ctb = cf_tab[ctb_set.long()]              # [ch, cw, 7]
+        acc = torch.zeros_like(cur)
+        for j, diff in enumerate(diffs):
+            acc = acc + expand_ctb(cf_ctb[:, :, j], cs_v, cs_h, Hc, Wc) * diff
+        acc = torch.where(skip[:, None], 0, acc)
+        acc = torch.clamp((acc + 64) >> 7, -half, half - 1)
+        outs.append(torch.clamp(dst.to(torch.int32) + acc, 0,
+                                pix_max).to(torch.int16))
+    return outs
 
 
-def cc_filter(dst, luma, rowsel, skip, cf_ctb, cs_v, cs_h, hs, half,
-              pix_max):
-    """CC-ALF of one chroma plane: the CUDA kernel on CUDA tensors,
-    `cc_filter_ref` (same arguments) on CPU tensors.  Returns a new int16
-    [Hc, Wc]."""
-    if dst.device.type == "cpu":
-        return cc_filter_ref(dst, luma, rowsel, skip, cf_ctb, cs_v, cs_h, hs,
-                             half, pix_max)
+def cc_filter(dsts, luma, ctb_sets, cf_tabs, cs_v, cs_h, hs, vs, half,
+              pix_max, edges=None):
+    """CC-ALF of one or two chroma planes in one launch of the CUDA kernel
+    on CUDA tensors, `cc_filter_ref` (same arguments) on CPU tensors.
+    Returns new int16 [Hc, Wc] tensors."""
+    if dsts[0].device.type == "cpu":
+        return cc_filter_ref(dsts, luma, ctb_sets, cf_tabs, cs_v, cs_h, hs,
+                             vs, half, pix_max, edges)
     name = "cc_filter"
-    _check_cuda(name, (dst, luma), (skip, cf_ctb))
-    Hc, Wc = dst.shape
+    n = len(dsts)
+    _check(name, 1 <= n <= 2 and len(ctb_sets) == len(cf_tabs) == n,
+           "one or two planes, each with its parameters")
+    _check_cuda(name, (*dsts, luma), (*ctb_sets, *cf_tabs))
+    Hc, Wc = dsts[0].shape
     H, W = luma.shape
-    ch, cw = cf_ctb.shape[:2]
-    _check(name, rowsel.is_cuda and rowsel.is_contiguous() and
-           rowsel.dtype == torch.int64, "contiguous CUDA int64 rowsel "
-           "expected")
-    _check(name, rowsel.shape == (4, Hc) and skip.shape == (Hc,) and
-           cf_ctb.shape[2] == 7 and ch * cs_v >= Hc and cw * cs_h >= Wc and
-           W > (Wc - 1) << hs, "inconsistent shapes")
-    out = torch.empty_like(dst)
+    ch, cw = ctb_sets[0].shape
+    _check(name, (hs, vs) in ((1, 1), (1, 0), (0, 0)) and
+           (H, W) == (Hc << vs, Wc << hs) and Wc % 4 == 0 and
+           ch * cs_v >= Hc and cw * cs_h >= Wc and
+           min(cs_v, cs_h) >= MIN_CTB and
+           all(x.shape == (Hc, Wc) for x in dsts) and
+           all(s.shape == (ch, cw) for s in ctb_sets) and
+           all(t.ndim == 2 and t.shape[1] == 7 for t in cf_tabs),
+           "inconsistent shapes")
+    _check(name, luma.data_ptr() % 16 == 0, "luma must be 16-byte aligned")
+    outs = [torch.empty_like(x) for x in dsts]
+    ptrs = [t.data_ptr() for z in range(n)
+            for t in (dsts[z], outs[z], ctb_sets[z], cf_tabs[z])]
     err = _build.lib().ffvvc_cc(
-        dst.data_ptr(), luma.data_ptr(), H, W, rowsel.data_ptr(),
-        skip.data_ptr(), cf_ctb.data_ptr(), cw, _log2(cs_v, "cs_v"),
-        _log2(cs_h, "cs_h"), hs, half, pix_max, Hc, Wc, out.data_ptr(),
-        stream_of(dst))
+        n, (ctypes.c_void_p * len(ptrs))(*ptrs), luma.data_ptr(),
+        _edge_ptr(name, edges, ch, cw), H, W, Hc, Wc, cw,
+        _log2(cs_v, "cs_v"), _log2(cs_h, "cs_h"), hs, vs, half, pix_max,
+        stream_of(luma))
     _build.check(err, "ffvvc_cc")
-    cc_filter.launches += 1
-    return out
+    _count(cc_filter, edges)
+    return outs
 
 
-cc_filter.launches = 0
+# kernel launches of each wrapper, and those of them that took edge words
+# (chip_smoke.py resets and reads them)
+for _fn in (alf_filter_luma, alf_filter_chroma, cc_filter):
+    _fn.launches = _fn.edge_launches = 0
+
+
+# ---- the per-stage entry point ----------------------------------------------
+
+def ctb_edges(af):
+    """int32 [ch, cw] edge words of `AlfFilter` af: `AlfFilter._edges` of
+    every CTB as `EDGE_*` bits."""
+    ch, cw = af.pps.ctb_height, af.pps.ctb_width
+    bits = (EDGE_LEFT, EDGE_TOP, EDGE_RIGHT, EDGE_BOTTOM)
+    words = np.zeros((ch, cw), np.int32)
+    for ry in range(ch):
+        for rx in range(cw):
+            words[ry, rx] = sum(b for b, e in zip(bits, af._edges(rx, ry))
+                                if e)
+    return words
+
+
+def alf_frame_device(sps, pps, tabs, fb, sh_list, alf_list, device="cuda"):
+    """Device ALF + CC-ALF over all planes of a frame, in place on
+    fb.planes.  The planes go up as 16-bit samples with the per-CTB sets,
+    tables and edge words; the luma is classified per CTB window
+    (`fused_device.alf_classify_ctbs`), filtered, both chroma planes are
+    filtered in one call and corrected in one call from the luma as it was
+    before ALF; the planes that changed come down.  A CTB whose CC-ALF APS
+    is missing gets no correction; a missing ALF APS raises KeyError."""
+    from . import fused_device as fd
+    if not sps.r.sps_alf_enabled_flag:
+        return
+    if not tabs.alf_ctb_flag.any() and not tabs.alf_cc_idc.any():
+        return
+    ap = fd._alf_ctb_params(sps, pps, tabs, sh_list, alf_list)
+    dev = torch.device(device)
+    nc = 3 if sps.chroma_format_idc else 1
+    cs, bd = sps.ctb_size_y, sps.bit_depth
+    pix_max = (1 << bd) - 1
+    a = {k: torch.from_numpy(v).to(dev) for k, v in ap.items()}
+    edges = torch.from_numpy(ctb_edges(
+        AlfFilter(sps, pps, tabs, fb, sh_list, alf_list))).to(dev)
+    pre = [torch.from_numpy(as_wire(p)).to(dev) for p in fb.planes[:nc]]
+    out = {}
+    if "alf0_ctb_set" in a:
+        ci, ti = fd.alf_classify_ctbs(pre[0], edges, cs, bd)
+        out[0] = alf_filter_luma(pre[0], ci, ti, a["alf0_ctb_set"],
+                                 a["alf0_cf"], a["alf0_cl"], cs, pix_max,
+                                 edges)
+    if nc == 3:
+        hs, vs = sps.hshift[1], sps.vshift[1]
+        csv, csh = cs >> vs, cs >> hs
+        on = [c for c in (1, 2) if f"alf{c}_set" in a]
+        if on:
+            done = alf_filter_chroma(
+                [pre[c] for c in on], [a[f"alf{c}_set"] for c in on],
+                [a[f"alf{c}_cf"] for c in on], [a[f"alf{c}_cl"] for c in on],
+                csv, csh, pix_max, edges)
+            out.update(zip(on, done))
+        on = [c for c in (1, 2) if f"cc{c}_set" in a]
+        if on:
+            done = cc_filter(
+                [out.get(c, pre[c]) for c in on], pre[0],
+                [a[f"cc{c}_set"] for c in on], [a[f"cc{c}_cf"] for c in on],
+                csv, csh, hs, vs, 1 << (bd - 1), pix_max, edges)
+            out.update(zip(on, done))
+    for c, t in out.items():
+        fb.planes[c][:] = t.cpu().numpy()

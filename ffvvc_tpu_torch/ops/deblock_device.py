@@ -1,4 +1,4 @@
-"""Deblocking of the fused chain as batched segment math in plain PyTorch.
+"""Device deblocking as batched segment math in plain PyTorch.
 
 Port of `ffvvc_tpu/ops/deblock_device.py`: the host rasterizes one
 parameter tuple per 4-line (luma) or 2/4-line (chroma) edge segment —
@@ -11,7 +11,11 @@ one data-parallel pass.
 The scatter is `index_put_(..., accumulate=True)`: the segment batch is
 padded with zero-delta segments that all land on index (0, 0), and only an
 accumulating scatter is defined for duplicate indices.  A hand kernel for
-this stage is ROADMAP.md queue 1 item 6.
+this stage is in ROADMAP.md (performance work on the main path).
+
+`deblock_frame_device` is the per-stage entry point
+(`DecoderConfig.device_deblock`); the fused chain (`fused_device.chain`)
+runs the same `luma_math` and `chroma_math` on the same segment arrays.
 """
 from __future__ import annotations
 
@@ -90,6 +94,18 @@ def _pad_pow2(n):
     while p < n:
         p <<= 1
     return p
+
+
+def seg_array(segs):
+    """Segment tuples as the padded int16 [7, B] array that travels to the
+    device.  Padded segments keep tc == 0 and mlp == mlq == 0, which masks
+    every filter branch off (zero deltas), so padding is an exact no-op.
+    int16 holds every field: px/py < 2^15 for any level-supported picture,
+    tc <= 1580 (12-bit), beta <= 1408."""
+    a = np.zeros((7, _pad_pow2(max(len(segs), 1))), np.int16)
+    if segs:
+        a[:, :len(segs)] = np.asarray(segs, np.int16).T
+    return a
 
 
 def rasterize_deblock(sps, pps, tabs, fb, slice_rpls, vertical):
@@ -430,3 +446,34 @@ def chroma_math(plane, px, py, tc, beta, mlp, mlq, size, vertical: bool,
         srows = py[:, None, None] - 4 + wtap[None, :, None]
         scols = px[:, None, None] + lines[None, None, :]
     return _scatter_add(plane, srows, scols, delta)
+
+
+def deblock_frame_device(sps, pps, tabs, fb, slice_rpls, device="cuda"):
+    """Whole-frame device deblock (both directions, all planes), in place
+    on fb.planes.  Returns False when the stream needs the host path
+    (LADF reads pixel averages mid-pass).  The segments of both directions
+    are rasterized first (they do not depend on the samples), then every
+    plane with an edge goes up once as 16-bit samples, through its vertical
+    and its horizontal pass, and comes down once."""
+    if getattr(sps, "num_ladf_intervals", 0):
+        return False
+    dev = torch.device(device)
+    pix_max = (1 << sps.bit_depth) - 1
+    passes = [(v, rasterize_deblock(sps, pps, tabs, fb, slice_rpls, v))
+              for v in (True, False)]
+    for c in range(3 if sps.chroma_format_idc else 1):
+        math = luma_math if c == 0 else chroma_math
+        plane = None
+        for vertical, ras in passes:
+            segs = ras.luma_segs if c == 0 else ras.chroma_segs.get(c)
+            if not segs:
+                continue
+            if plane is None:
+                plane = torch.from_numpy(
+                    np.ascontiguousarray(fb.planes[c], np.int16)).to(dev)
+                plane = plane.to(torch.int32)
+            s = torch.from_numpy(seg_array(segs)).to(dev).to(torch.int32)
+            plane = math(plane, *s.unbind(0), vertical, pix_max)
+        if plane is not None:
+            fb.planes[c][:] = plane.to(torch.int16).cpu().numpy()
+    return True

@@ -20,7 +20,10 @@ plain PyTorch versions when they are on the CPU; they take and return the
 16-bit wire samples.  LMCS, deblocking and the ALF classification are plain
 PyTorch here and compute in int32: a plane is widened when the first of
 them touches it and narrowed once at the hand-over to SAO.  Their hand
-kernels are ROADMAP.md queue 1 item 6.
+kernels are in ROADMAP.md (performance work on the main path).  The
+per-stage entry points (`sao_device.sao_frame_device`,
+`alf_device.alf_frame_device`, `deblock_device.deblock_frame_device`,
+`lmcs_device.lmcs_frame_device`) run the same stages one at a time.
 """
 from __future__ import annotations
 
@@ -29,17 +32,17 @@ import time
 import numpy as np
 import torch
 
-from ..alf import (ALF_BORDER_LUMA, ALF_BORDER_CHROMA,
-                   ALF_VB_POS_ABOVE_LUMA, ALF_VB_POS_ABOVE_CHROMA, _ARG_VAR)
-from ..sao import SaoFilter, SAO_BAND, _EDGE_IDX
+from ..alf import ALF_BORDER_LUMA, ALF_VB_POS_ABOVE_LUMA, _ARG_VAR
+from ..sao import SaoFilter
 from . import data as D
 
-from .alf_device import (_CHROMA_SLOT, _vb_row_offsets, alf_filter_chroma,
-                         alf_filter_luma, cc_filter)
-from .deblock_device import (rasterize_deblock, _pad_pow2, luma_math,
+from .alf_device import (EDGE_BOTTOM, EDGE_LEFT, EDGE_RIGHT, EDGE_TOP,
+                         _CHROMA_SLOT, alf_filter_chroma, alf_filter_luma,
+                         cc_filter)
+from .deblock_device import (rasterize_deblock, seg_array, luma_math,
                              chroma_math)
-from .sao_device import (_PARAM_ROWS, expand_ctb, pack_params, pad_edge,
-                         sao_apply)
+from .sao_device import (_PARAM_ROWS, ctb_tables, expand_ctb, pack_params,
+                         pad_edge, sao_apply)
 
 # transfer accounting (bytes) and host-clock seconds of the two halves of
 # fused_frame_filters: building the parameters on the host (build_s) and
@@ -49,7 +52,11 @@ stats = {"up_bytes": 0, "down_bytes": 0, "frames": 0, "build_s": 0.0,
          "device_s": 0.0}
 
 # parameter arrays the chain uses as torch indices: int64 on the device
-_INDEX_KEYS = frozenset({"cls_r0", "cls_r3", "cc_row", "cc1_set", "cc2_set"})
+_INDEX_KEYS = frozenset({"cls_r0", "cls_r3"})
+# arrays of the JAX chain's wire format that no stage of this chain reads
+# (the kernels compute the virtual-boundary rows from the row number)
+_UNREAD_KEYS = frozenset({"alf0_row", "alf0_vb", "alfc_row", "alfc_vb",
+                          "cc_row", "cc_skip"})
 
 
 def reset_stats():
@@ -65,18 +72,26 @@ def _up(a):
 
 
 def to_device(meta, arrs, device):
-    """The chain's per-frame parameter dict (the numpy arrays the JAX
-    `_chain` receives) as tensors on `device`: uint16 planes travel as
-    int16 (same bytes), the nine SAO arrays of a plane as one packed
-    `sao{c}_prm` (same bytes, one copy), index arrays become int64 after the
-    upload, and the luma ALF set of each 4x4 block is reduced to the set of
-    each CTB (`alf0_ctb_set`), which is what the kernel takes."""
+    """The chain's per-frame parameter dict as tensors on `device`: uint16
+    planes travel as int16 (same bytes) and index arrays become int64 after
+    the upload.  `arrs` is what `fused_frame_filters` builds, or the numpy
+    arrays the JAX `_chain` receives: of those the nine SAO arrays of a
+    plane are packed into the one table `sao{c}_prm`, the luma ALF set of
+    each 4x4 block is reduced to the set of each CTB (`alf0_ctb_set`), and
+    the row tables no stage reads are dropped, all before the upload."""
     dev = torch.device(device)
-    arrs = dict(arrs)
+    m = dict(meta)
+    cs = m["cs"]
+    arrs = {k: v for k, v in arrs.items() if k not in _UNREAD_KEYS}
     for c in range(3):
         if f"sao{c}_typ" in arrs:
+            H, W = arrs[f"p{c}"].shape
             arrs[f"sao{c}_prm"] = pack_params(
-                {k: arrs.pop(f"sao{c}_{k}") for k in _PARAM_ROWS})
+                {k: arrs.pop(f"sao{c}_{k}") for k in _PARAM_ROWS}, H, W,
+                cs >> (m["vs"] if c else 0), cs >> (m["hs"] if c else 0))
+    if "alf0_set" in arrs:
+        # blocks inherit their CTB's set, so every (cs / 4)-th is the CTB's
+        arrs["alf0_ctb_set"] = arrs.pop("alf0_set")[::cs // 4, ::cs // 4]
     out = {}
     for k, a in arrs.items():
         # torch.from_numpy shares memory: copy read-only arrays (e.g. views
@@ -86,10 +101,6 @@ def to_device(meta, arrs, device):
             a = a.view(np.int16)
         t = torch.from_numpy(a).to(dev)
         out[k] = t.long() if k in _INDEX_KEYS else t
-    if "alf0_set" in out:
-        # blocks inherit their CTB's set, so every (cs / 4)-th is the CTB's
-        q = dict(meta)["cs"] // 4
-        out["alf0_ctb_set"] = out.pop("alf0_set")[::q, ::q].contiguous()
     return out
 
 
@@ -112,22 +123,22 @@ def _prod_le(a, b, c, d):
 
 def alf_classify(P3, r0sel, r3sel, blk_start1, blk_end3, blk_ac, nby, nbx,
                  bd):
-    """Whole-frame ALF luma classification (`fused_device._alf_classify`).
-    P3: [H+6, W+6] padded plane; r0sel/r3sel: int64 [GH] P3-row indices
-    (VB-substituted); blk_*: [nby] per-block-row sum window / activity
-    multiplier.  Returns per-4x4 (class_idx, transpose_idx) [nby, nbx]
-    int32."""
+    """ALF luma classification of a whole plane, or of a batch of windows
+    (`fused_device._alf_classify`).  P3: [..., H+6, W+6] padded plane(s);
+    r0sel/r3sel: int64 [GH] P3-row indices (VB-substituted); blk_*: [nby]
+    per-block-row sum window / activity multiplier.  Returns per-4x4
+    (class_idx, transpose_idx) [..., nby, nbx] int32."""
     GH = r0sel.shape[0]
     GW = nbx * 2 + 2
     # row planes of the 2x2 gradient grid (rows I, I+1, I+2, I+3 with
     # substituted I/I+3), cols J..J+3 via slicing
-    rI = P3.index_select(0, r0sel)            # [GH, W+6]
-    r1 = P3[1::2][:GH]                         # rows I+1 (I even)
-    r2 = P3[2::2][:GH]
-    r3 = P3.index_select(0, r3sel)
+    rI = P3.index_select(-2, r0sel)            # [..., GH, W+6]
+    r1 = P3[..., 1::2, :][..., :GH, :]         # rows I+1 (I even)
+    r2 = P3[..., 2::2, :][..., :GH, :]
+    r3 = P3.index_select(-2, r3sel)
 
-    def cols(r, j):                            # [GH, GW] cols J+j, J=2gx
-        return r[:, j:j + 2 * GW:2][:, :GW]
+    def cols(r, j):                            # [..., GH, GW] cols J+j, J=2gx
+        return r[..., j:j + 2 * GW:2][..., :GW]
     v0 = cols(r1, 1) << 1
     v1 = cols(r2, 2) << 1
     g0 = torch.abs(v0 - cols(rI, 1) - cols(r2, 1)) + \
@@ -141,13 +152,13 @@ def alf_classify(P3, r0sel, r3sel, blk_start1, blk_end3, blk_ac, nby, nbx,
 
     def blksum(g):
         # columns: window of 4 starting at 2bx
-        c = g[:, 0:2 * nbx:2] + g[:, 1:2 * nbx + 1:2] + \
-            g[:, 2:2 * nbx + 2:2] + g[:, 3:2 * nbx + 3:2]   # [GH, nbx]
+        c = g[..., 0:2 * nbx:2] + g[..., 1:2 * nbx + 1:2] + \
+            g[..., 2:2 * nbx + 2:2] + g[..., 3:2 * nbx + 3:2]   # [GH, nbx]
         # rows: 2by + j for j in [start, end)
-        j0 = c[0:2 * nby:2]
-        j1 = c[1:2 * nby + 1:2]
-        j2 = c[2:2 * nby + 2:2]
-        j3 = c[3:2 * nby + 3:2]
+        j0 = c[..., 0:2 * nby:2, :]
+        j1 = c[..., 1:2 * nby + 1:2, :]
+        j2 = c[..., 2:2 * nby + 2:2, :]
+        j3 = c[..., 3:2 * nby + 3:2, :]
         s = j0 + j1 + j2 + j3
         s = s - torch.where(blk_start1[:, None] != 0, j0, 0)
         s = s - torch.where(blk_end3[:, None] != 0, j3, 0)
@@ -175,6 +186,44 @@ def alf_classify(P3, r0sel, r3sel, blk_start1, blk_end3, blk_ac, nby, nbx,
                                       ((dir1 << 1) + 1) * 5, 0))
     ti = dir_d * 2 + dir_hv
     return ci, ti
+
+
+def alf_classify_ctbs(y, edges, cs, bd):
+    """ALF luma classification CTB by CTB, as the per-stage entry point
+    needs it (`AlfFilter._classify` on `AlfFilter._window`): the window of
+    every CTB, cs + 6 samples square, is gathered with its coordinates
+    clamped to the picture, or to the CTB itself on the sides its edge word
+    names, and all windows are classified in one batch as pictures of one
+    CTB.  y: int16 or int32 [H, W] luma; edges: int32 [ch, cw]
+    (`alf_device.ctb_edges`).  Returns (class_idx, transpose_idx) int32
+    [H / 4, W / 4].  In a CTB that the picture cuts short the rows and
+    columns of the window past its end hold repeated samples, which only
+    the blocks cropped away read."""
+    H, W = y.shape
+    ch, cw = edges.shape
+    dev = y.device
+    b = ALF_BORDER_LUMA
+    k = torch.arange(-b, cs + b, device=dev)
+    y0 = (torch.arange(ch, device=dev) * cs)[:, None]
+    x0 = (torch.arange(cw, device=dev) * cs)[None, :]
+    ylo = torch.where(edges & EDGE_TOP != 0, y0, 0)
+    yhi = torch.where(edges & EDGE_BOTTOM != 0,
+                      torch.clamp(y0 + cs, max=H), H) - 1
+    xlo = torch.where(edges & EDGE_LEFT != 0, x0, 0)
+    xhi = torch.where(edges & EDGE_RIGHT != 0,
+                      torch.clamp(x0 + cs, max=W), W) - 1
+    rows = torch.clamp(y0[..., None] + k, ylo[..., None], yhi[..., None])
+    cols = torch.clamp(x0[..., None] + k, xlo[..., None], xhi[..., None])
+    win = y.to(torch.int32)[rows[..., :, None], cols[..., None, :]]
+    r0, r3, s1, e3, ac = (torch.from_numpy(a).to(dev)
+                          for a in _cls_arrays(cs, cs))
+    n = cs // 4
+    ci, ti = alf_classify(win, r0.long(), r3.long(), s1, e3, ac, n, n, bd)
+
+    def plane(a):       # [ch, cw, n, n] -> [H / 4, W / 4]
+        return a.permute(0, 2, 1, 3).reshape(ch * n, cw * n)[
+            :H // 4, :W // 4].contiguous()
+    return plane(ci), plane(ti)
 
 
 # ---------------------------------------------------------------------------
@@ -251,92 +300,20 @@ def chain(meta, a):
                 csv, csh, pix_max)
             for c, p in zip(on, done):
                 planes[c] = p
-        half = 1 << (bd - 1)
-        for c in (1, 2):
-            if m[f"cc{c}"]:
-                ccb = a[f"cc{c}_cf"][a[f"cc{c}_set"]]    # [ch, cw, 7]
-                planes[c] = cc_filter(planes[c], post_sao[0], a["cc_row"],
-                                      a["cc_skip"], ccb.contiguous(), csv,
-                                      csh, m["hs"], half, pix_max)
+        on = [c for c in (1, 2) if m[f"cc{c}"]]
+        if on:
+            done = cc_filter(
+                [planes[c] for c in on], post_sao[0],
+                [a[f"cc{c}_set"] for c in on], [a[f"cc{c}_cf"] for c in on],
+                csv, csh, m["hs"], m["vs"], 1 << (bd - 1), pix_max)
+            for c, p in zip(on, done):
+                planes[c] = p
     return tuple(planes)
 
 
 # ---------------------------------------------------------------------------
 # host-side parameter rasterization (ffvvc_tpu/ops/fused_device.py, NumPy)
 # ---------------------------------------------------------------------------
-
-def _sao_ctb_params(sf, c, sps, pps, tabs):
-    """Per-CTB SAO parameter arrays for component c, or None if SAO is
-    off on the whole plane.  Requires restore-free streams (the caller
-    gates on loop-filter-across flags)."""
-    ch, cw = pps.ctb_height, pps.ctb_width
-    hs, vs = sps.hshift[c], sps.vshift[c]
-    W = pps.width >> hs
-    H = pps.height >> vs
-    z = lambda: np.zeros((ch, cw), np.int32)
-    typ, m1 = z(), z()
-    offs = np.zeros((5, ch, cw), np.int32)
-    kl, kr, kt, kb, ax = z(), z(), z(), z(), z()
-    bx = np.full((ch, cw), 1 << 30, np.int32)
-    any_on = False
-    for ry in range(ch):
-        for rx in range(cw):
-            rs = ry * cw + rx
-            t = int(tabs.sao_type[rs, c])
-            if t == 0:
-                continue
-            any_on = True
-            typ[ry, rx] = t
-            off = tabs.sao_offset[rs, c]
-            if t == SAO_BAND:
-                m1[ry, rx] = int(tabs.sao_band_pos[rs, c])
-                for k in range(4):
-                    offs[k, ry, rx] = off[k + 1]
-                continue
-            eo = int(tabs.sao_eo_class[rs, c])
-            m1[ry, rx] = eo
-            for i in range(5):
-                offs[i, ry, rx] = off[_EDGE_IDX[i]]
-            edges = [rx == 0, ry == 0, rx == cw - 1, ry == ch - 1]
-            x0 = (rx << sps.ctb_log2_size_y) >> hs
-            w = min(sps.ctb_size_y >> hs, W - x0)
-            init_x, rw = 0, w
-            if eo != 1:
-                if edges[0]:
-                    kl[ry, rx] = 1
-                    init_x = 1
-                if edges[2]:
-                    kr[ry, rx] = 1
-                    rw = w - 1
-            if eo != 0:
-                if edges[1]:
-                    kt[ry, rx] = 1
-                if edges[3]:
-                    kb[ry, rx] = 1
-                ax[ry, rx] = init_x
-                bx[ry, rx] = rw
-    if not any_on:
-        return None
-    return dict(typ=typ, m1=m1, offs=offs, kl=kl, kr=kr, kt=kt, kb=kb,
-                ax=ax, bx=bx)
-
-
-def _alf_vb_arrays(H, cs_v, border, vb_above, is_luma):
-    """Global tap row-index [7, H] + near-vb [H] arrays composed from the
-    per-CTB-row _vb_row_offsets."""
-    rowsel = np.zeros((7, H), np.int32)
-    vbsel = np.zeros(H, np.int32)
-    y0 = 0
-    while y0 < H:
-        h = min(cs_v, H - y0)
-        vb = cs_v - vb_above
-        o = _vb_row_offsets(h, vb, is_luma)
-        ys = np.arange(h)
-        rowsel[:, y0:y0 + h] = border + y0 + ys[None, :] + o
-        vbsel[y0:y0 + h] = ((ys >= vb - 1) & (ys <= vb)).astype(np.int32)
-        y0 += h
-    return rowsel, vbsel
-
 
 def _cls_arrays(H, cs):
     """Classification grid row selectors + block-row windows (luma)."""
@@ -354,37 +331,6 @@ def _cls_arrays(H, cs):
     end3 = (bloc + 4 == vb).astype(np.int32)
     ac = np.where((bloc + 4 == vb) | (bloc == vb), 3, 2).astype(np.int32)
     return r0, r3, start1, end3, ac
-
-
-def _cc_arrays(Hc, cs, vs):
-    """CC-ALF luma tap row indices [4, Hc] + skip [Hc]."""
-    b = ALF_BORDER_LUMA
-    cs_v = cs >> vs
-    rowsel = np.zeros((4, Hc), np.int32)
-    skip = np.zeros(Hc, np.int32)
-    y0 = 0
-    while y0 < Hc:
-        h = min(cs_v, Hc - y0)
-        vb = (cs_v << vs) - ALF_VB_POS_ABOVE_LUMA
-        yy = np.arange(h)
-        pos = yy << vs
-        sk = (vs == 0) & ((pos == vb) | (pos == vb + 1))
-        r0 = pos - 1
-        r1 = pos.copy()
-        r2 = pos + 1
-        r3 = pos + 2
-        mm = (pos == vb - 2) | (pos == vb + 1)
-        r3 = np.where(mm, r2, r3)
-        mm = (pos == vb - 1) | (pos == vb)
-        r3 = np.where(mm, r1, r3)
-        r2 = np.where(mm, r1, r2)
-        r0 = np.where(mm, r1, r0)
-        base = b + (y0 << vs)
-        for j, rr in enumerate((r0, r1, r2, r3)):
-            rowsel[j, y0:y0 + h] = base + rr
-        skip[y0:y0 + h] = sk.astype(np.int32)
-        y0 += h
-    return rowsel, skip
 
 
 def _alf_ctb_params(sps, pps, tabs, sh_list, alf_list):
@@ -425,11 +371,8 @@ def _alf_ctb_params(sps, pps, tabs, sh_list, alf_list):
     if len(luma_sets) > 1:
         cf = np.stack([v[0] for v in luma_sets.values()]).astype(np.int32)
         cl = np.stack([v[1] for v in luma_sets.values()]).astype(np.int32)
-        # per-4x4-block set index (blocks inherit their CTB's set)
-        nby, nbx = pps.height // 4, pps.width // 4
-        blky = np.minimum(np.arange(nby) * 4 // sps.ctb_size_y, ch - 1)
-        blkx = np.minimum(np.arange(nbx) * 4 // sps.ctb_size_y, cw - 1)
-        out["alf0_set"] = set_idx[np.ix_(blky, blkx)]
+        # per CTB: the 4x4 blocks inherit their CTB's set
+        out["alf0_ctb_set"] = set_idx
         out["alf0_cf"] = cf
         out["alf0_cl"] = cl
     # --- chroma: unique (aps_id, alt) -> 12-slot coeff/clip ---
@@ -555,22 +498,13 @@ def fused_frame_filters(sps, pps, tabs, fb, sh_list, alf_list, lmcs,
                 (ras.chroma_segs.get(c) or [])
             meta[f"db{d}c{c}"] = bool(segs)
             if segs:
-                # int16 on the wire: px/py < 2^15 for any level-supported
-                # picture, tc <= 1580 (12-bit), beta <= 1408
-                B = _pad_pow2(len(segs))
-                a = np.zeros((7, B), np.int16)
-                a[:, :len(segs)] = np.asarray(segs, np.int16).T
-                arrs[f"db{d}c{c}"] = _up(a)
+                arrs[f"db{d}c{c}"] = _up(seg_array(segs))
     # --- SAO ---
-    sf = SaoFilter(sps, pps, tabs, fb)
+    tables = ctb_tables(SaoFilter(sps, pps, tabs, fb), nc)
     for c in range(nc):
-        p = None
-        if tabs.sao_type[:, c].any():
-            p = _sao_ctb_params(sf, c, sps, pps, tabs)
-        meta[f"sao{c}"] = p is not None
-        if p is not None:
-            for k, v in p.items():
-                arrs[f"sao{c}_{k}"] = _up(v)
+        meta[f"sao{c}"] = tables[c] is not None
+        if tables[c] is not None:
+            arrs[f"sao{c}_prm"] = _up(tables[c])
     # --- ALF ---
     for key in ("alf0", "alf1", "alf2", "cc1", "cc2"):
         meta[key] = False
@@ -582,41 +516,16 @@ def fused_frame_filters(sps, pps, tabs, fb, sh_list, alf_list, lmcs,
             return False    # missing APS etc: host fallback handles it
         for k, v in ap.items():
             arrs[k] = _up(v)
-        H, W = pps.height, pps.width
-        cs = sps.ctb_size_y
-        if "alf0_set" in ap:
+        if "alf0_ctb_set" in ap:
             meta["alf0"] = True
-            r0, r3, s1, e3, ac = _cls_arrays(H, cs)
+            r0, r3, s1, e3, ac = _cls_arrays(pps.height, sps.ctb_size_y)
             arrs["cls_r0"] = _up(r0)
             arrs["cls_r3"] = _up(r3)
             arrs["blk_start1"] = _up(s1)
             arrs["blk_end3"] = _up(e3)
             arrs["blk_ac"] = _up(ac)
-            # alf0_row/alf0_vb and alfc_row/alfc_vb keep the wire format
-            # (the byte counts equal the JAX package's); no stage reads
-            # them: the ALF kernels compute the virtual-boundary rows from
-            # the row number
-            rowsel, vbsel = _alf_vb_arrays(H, cs, ALF_BORDER_LUMA,
-                                           ALF_VB_POS_ABOVE_LUMA, True)
-            arrs["alf0_row"] = _up(rowsel)
-            arrs["alf0_vb"] = _up(vbsel)
-        if nc == 3:
-            hs, vs = meta["hs"], meta["vs"]
-            Hc = H >> vs
-            if ("alf1_set" in ap) or ("alf2_set" in ap):
-                rowsel, vbsel = _alf_vb_arrays(
-                    Hc, cs >> vs, ALF_BORDER_CHROMA,
-                    ALF_VB_POS_ABOVE_CHROMA, False)
-                arrs["alfc_row"] = _up(rowsel)
-                arrs["alfc_vb"] = _up(vbsel)
-                meta["alf1"] = "alf1_set" in ap
-                meta["alf2"] = "alf2_set" in ap
-            if ("cc1_set" in ap) or ("cc2_set" in ap):
-                rowsel, skip = _cc_arrays(Hc, cs, vs)
-                arrs["cc_row"] = _up(rowsel)
-                arrs["cc_skip"] = _up(skip)
-                meta["cc1"] = "cc1_set" in ap
-                meta["cc2"] = "cc2_set" in ap
+        for key in ("alf1", "alf2", "cc1", "cc2"):
+            meta[key] = f"{key}_set" in ap
     t1 = time.perf_counter()
     out = chain(meta, to_device(meta, arrs, device))
     res = [p.cpu().numpy() for p in out]    # synchronises with the device

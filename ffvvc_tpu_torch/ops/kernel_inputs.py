@@ -9,7 +9,6 @@ from __future__ import annotations
 import numpy as np
 
 from .alf_device import _CHROMA_SLOT
-from .fused_device import _cc_arrays
 
 # filter sets in a seeded ALF table
 N_SETS = 5
@@ -73,12 +72,51 @@ def alf_chroma_inputs(rng, H, W, cs_v, cs_h, bd):
     return _samples(rng, (H, W), bd), ctb_set.astype(np.int32), cf, cl
 
 
-def cc_inputs(rng, Hc, Wc, cs, hs, vs, bd):
-    """CC-ALF of one chroma plane: (dst int16 [Hc, Wc], luma int16
-    [Hc << vs, Wc << hs], rowsel [4, Hc], skip [Hc], cf [ch, cw, 7])."""
-    rowsel, skip = _cc_arrays(Hc, cs, vs)
-    shape = (_grid(Hc, cs >> vs), _grid(Wc, cs >> hs), 7)
-    cf = rng.integers(-64, 65, shape).astype(np.int32)
-    dst = _samples(rng, (Hc, Wc), bd)
+def cc_inputs(rng, Hc, Wc, cs, hs, vs, bd, n=2):
+    """CC-ALF of n chroma planes: (dsts n x int16 [Hc, Wc], luma int16
+    [Hc << vs, Wc << hs], ctb_sets n x int32 [ch, cw], cf_tabs n x int32
+    [N_SETS, 7]) for CTBs of cs luma samples; set 0 holds zeros (no
+    correction), as `_alf_ctb_params` builds it."""
+    grid = (_grid(Hc, cs >> vs), _grid(Wc, cs >> hs))
+    ctb_sets, cf_tabs = [], []
+    for _ in range(n):
+        cf = rng.integers(-64, 65, (N_SETS, 7)).astype(np.int32)
+        cf[0] = 0
+        cf_tabs.append(cf)
+        ctb_sets.append(rng.integers(0, N_SETS, grid).astype(np.int32))
+    dsts = [_samples(rng, (Hc, Wc), bd) for _ in range(n)]
     luma = _samples(rng, (Hc << vs, Wc << hs), bd)
-    return dst, luma, rowsel, skip, cf
+    return dsts, luma, ctb_sets, cf_tabs
+
+
+def edge_words(rng, ch, cw):
+    """Random int32 [ch, cw] edge words (`alf_device.EDGE_*` bits), the
+    picture's border always set: what a picture with random slices and
+    tiles that filtering must not cross gives ALF and CC-ALF."""
+    e = rng.integers(0, 16, (ch, cw)).astype(np.int32)
+    e[:, 0] |= 1
+    e[0, :] |= 2
+    e[:, -1] |= 4
+    e[-1, :] |= 8
+    return e
+
+
+def sao_restore_inputs(rng, H, W, cs_v, cs_h, bd):
+    """(plane int16 [H, W], table int32 [11, ch, cw]): SAO's per-CTB table
+    with random kept ranges on every edge-offset CTB, as a picture with
+    random slices and one tile per CTB column gives them
+    (`sao_device.ctb_tables`)."""
+    ch, cw = _grid(H, cs_v), _grid(W, cs_h)
+    tab = np.zeros((11, ch, cw), np.int32)
+    tab[0] = rng.integers(0, 3, (ch, cw))
+    tab[1] = np.where(tab[0] == 1, rng.integers(0, 32, (ch, cw)),
+                      rng.integers(0, 4, (ch, cw)))
+    tab[2:7] = rng.integers(-31, 32, (5, ch, cw))
+    h = np.minimum(cs_v, H - np.arange(ch) * cs_v)[:, None]
+    w = np.minimum(cs_h, W - np.arange(cw) * cs_h)[None, :]
+    for row, size in ((7, h), (8, h), (9, w), (10, w)):
+        lo = rng.integers(0, 3, (ch, cw))
+        hi = size - rng.integers(0, 3, (ch, cw))
+        on = (tab[0] == 2) & (rng.integers(0, 2, (ch, cw)) != 0) & (lo < hi)
+        tab[row] = np.where(on, lo | (hi << 16), 0)
+    return _samples(rng, (H, W), bd), tab

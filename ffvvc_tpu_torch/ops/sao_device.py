@@ -1,13 +1,20 @@
-"""SAO of the fused chain: the CUDA kernel wrapper and its plain version.
+"""Device SAO: the CUDA kernel wrapper, its plain version, the entry point.
 
-`sao_apply` replaces `ffvvc_tpu/ops/sao_device.py::_sao_pallas` as the
-fused chain runs it (`ffvvc_tpu/ops/fused_device.py::_sao_apply`): band
-offset or edge offset per CTB, clipped, with the frame-border samples of
-the keep map left as they are.  It takes all planes of a picture at once,
-as 16-bit samples.  On CUDA tensors it launches `sao_kernel`
-(csrc/filters.cu) once for all of them; the kernel expands the per-CTB
-parameters itself.  On CPU tensors it runs `sao_apply_ref`, the same integer
-math in plain PyTorch.
+`sao_apply` replaces `ffvvc_tpu/ops/sao_device.py::_sao_pallas`: band offset
+or edge offset per CTB, clipped, with the samples of the keep map left as
+they are.  It takes all planes of a picture at once, as 16-bit samples, and
+per plane one per-CTB table (`ctb_tables`): type, band position or edge
+class, offsets, and the kept samples of the CTB's border as four ranges,
+which cover the picture's border and the restore regions at slice and tile
+boundaries that filtering must not cross.  On CUDA tensors it launches
+`sao_kernel` (csrc/filters.cu) once for all planes; the kernel expands the
+per-CTB parameters itself.  On CPU tensors it runs `sao_apply_ref`, the same
+integer math in plain PyTorch.
+
+`sao_frame_device` is the per-stage entry point (`DecoderConfig.device_sao`,
+`ffvvc_tpu/ops/sao_device.py::sao_frame_device`): planes up, one call of
+`sao_apply`, planes down.  The fused chain (`fused_device.chain`) calls
+`sao_apply` with the same tables.
 """
 from __future__ import annotations
 
@@ -16,12 +23,17 @@ import ctypes
 import numpy as np
 import torch
 
-from ..sao import SAO_BAND, SAO_EDGE
+from ..sao import SAO_BAND, SAO_EDGE, SaoFilter, _EDGE_IDX
 
 from . import _build
 
-# per-CTB parameter rows of the packed [13, ch, cw] table the kernel reads
-# (`pack_params`): offs takes five rows
+# rows of the per-CTB int32 [11, ch, cw] table the kernel reads: typ, m1,
+# offs[0..4], then the kept ranges lo | hi << 16 (CTB coordinates): rows of
+# the first column, rows of the last column, columns of the first row,
+# columns of the last row
+TABLE_ROWS = 11
+# the nine per-CTB arrays of the JAX fused chain (`_sao_ctb_params` there),
+# which `pack_params` turns into the table: offs takes five rows
 _PARAM_ROWS = ("typ", "m1", "offs", "kl", "kr", "kt", "kb", "ax", "bx")
 # the narrowest CTB the kernels' tiles are laid out for
 MIN_CTB = 16
@@ -52,13 +64,115 @@ def stream_of(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def pack_params(p):
-    """The nine per-CTB arrays of `_sao_ctb_params` (numpy, [ch, cw] and
-    offs [5, ch, cw]) as the one int32 [13, ch, cw] array the wrapper
-    takes."""
+def _ranges(lo, hi):
+    """[lo, hi) as lo | hi << 16; 0 where the range is empty."""
+    lo, hi = np.asarray(lo, np.int32), np.asarray(hi, np.int32)
+    return np.where(lo < hi, lo | (hi << 16), 0).astype(np.int32)
+
+
+def _ctb_sizes(H, W, cs_v, cs_h):
+    """(h [ch, 1], w [1, cw]): each CTB's size inside the picture."""
+    y0 = np.arange(0, H, cs_v)
+    x0 = np.arange(0, W, cs_h)
+    return (np.minimum(cs_v, H - y0)[:, None],
+            np.minimum(cs_h, W - x0)[None, :])
+
+
+def pack_params(p, H, W, cs_v, cs_h):
+    """The nine per-CTB arrays of the JAX fused chain (numpy, [ch, cw] and
+    offs [5, ch, cw]; its keep map knows the picture's border only: column
+    0 where kl, column W - 1 where kr, and of rows 0 and H - 1 the columns
+    [ax, bx) of each CTB where kt / kb) as the int32 [11, ch, cw] table the
+    wrapper takes."""
     ch, cw = p["typ"].shape
-    return np.concatenate([np.asarray(p[k], np.int32).reshape(-1, ch, cw)
-                           for k in _PARAM_ROWS])
+    h, w = _ctb_sizes(H, W, cs_v, cs_h)
+    ry, rx = np.arange(ch)[:, None], np.arange(cw)[None, :]
+    zero = np.zeros((ch, cw), np.int32)
+    bx = np.minimum(p["bx"], w)
+    rows = [p["typ"], p["m1"], *p["offs"],
+            _ranges(zero, np.where((p["kl"] != 0) & (rx == 0), h, 0)),
+            _ranges(zero, np.where((p["kr"] != 0) & (rx == cw - 1), h, 0)),
+            _ranges(p["ax"], np.where((p["kt"] != 0) & (ry == 0), bx, 0)),
+            _ranges(p["ax"], np.where((p["kb"] != 0) & (ry == ch - 1), bx, 0))]
+    return np.stack([np.broadcast_to(np.asarray(r, np.int32), (ch, cw))
+                     for r in rows])
+
+
+def ctb_tables(sf, nc):
+    """The per-CTB tables of planes 0..nc-1 for `SaoFilter` sf: int32
+    [11, ch, cw] each, or None for a plane with SAO off everywhere.  The
+    kept ranges follow the control flow of `SaoFilter._sao_ctb`
+    (`ffvvc_tpu/ops/sao_device.py::_rasterize_plane`): an edge-offset CTB
+    keeps its first or last column or row at the picture's border, and, on
+    pictures that forbid filtering across slice or tile boundaries, where
+    its neighbour lies in another slice or tile, less the corner samples
+    whose diagonal neighbour may be read."""
+    sps, pps, tabs = sf.sps, sf.pps, sf.tabs
+    ch, cw = pps.ctb_height, pps.ctb_width
+    out = [np.zeros((TABLE_ROWS, ch, cw), np.int32) for _ in range(nc)]
+    for ry in range(ch):
+        for rx in range(cw):
+            rs = ry * cw + rx
+            flags = None
+            for c in range(nc):
+                t = int(tabs.sao_type[rs, c])
+                if t == 0:
+                    continue
+                tab = out[c][:, ry, rx]
+                tab[0] = t
+                off = tabs.sao_offset[rs, c]
+                if t == SAO_BAND:
+                    tab[1] = int(tabs.sao_band_pos[rs, c])
+                    tab[2:6] = off[1:5]
+                    continue
+                eo = int(tabs.sao_eo_class[rs, c])
+                tab[1] = eo
+                tab[2:7] = [off[i] for i in _EDGE_IDX]
+                hs, vs = sps.hshift[c], sps.vshift[c]
+                x0 = (rx << sps.ctb_log2_size_y) >> hs
+                y0 = (ry << sps.ctb_log2_size_y) >> vs
+                w = min(sps.ctb_size_y >> hs, (pps.width >> hs) - x0)
+                h = min(sps.ctb_size_y >> vs, (pps.height >> vs) - y0)
+                if flags is None:
+                    flags = sf._restore_flags(rx, ry)
+                restore, edges, vert_edge, horiz_edge, diag_edge = flags
+                col0 = col1 = row0 = row1 = (0, 0)
+                init_x = init_y = 0
+                rw, rh = w, h
+                if eo != 1:       # SAO_EO_VERT
+                    if edges[0]:
+                        col0 = (0, h)
+                        init_x = 1
+                    if edges[2]:
+                        col1 = (0, h)
+                        rw = w - 1
+                if eo != 0:       # SAO_EO_HORIZ
+                    if edges[1]:
+                        row0 = (init_x, rw)
+                    if edges[3]:
+                        row1 = (init_x, rw)
+                        rh = h - 1
+                if restore:
+                    if eo != 0 and edges[1]:
+                        init_y = 1
+                    sul = (not diag_edge[0] and eo == 2 and
+                           not edges[0] and not edges[1])
+                    sur = (not diag_edge[1] and eo == 3 and
+                           not edges[1] and not edges[2])
+                    slr = (not diag_edge[2] and eo == 2 and
+                           not edges[2] and not edges[3])
+                    sll = (not diag_edge[3] and eo == 3 and
+                           not edges[0] and not edges[3])
+                    if vert_edge[0] and eo != 1:
+                        col0 = (init_y + sul, rh - sll)
+                    if vert_edge[1] and eo != 1:
+                        col1 = (init_y + sur, rh - slr)
+                    if horiz_edge[0] and eo != 0:
+                        row0 = (init_x + sul, rw - sur)
+                    if horiz_edge[1] and eo != 0:
+                        row1 = (init_x + sll, rw - slr)
+                tab[7:11] = [_ranges(*r) for r in (col0, col1, row0, row1)]
+    return [t if t[0].any() else None for t in out]
 
 
 def sao_math(src_pad, typ, m1, offs, keep, shift, pix_max):
@@ -91,13 +205,20 @@ def _sao_plane_ref(plane, prm, cs_v, cs_h, shift, pix_max):
         return expand_ctb(a, cs_v, cs_h, H, W)
     typ, m1 = px(prm[0]), px(prm[1])
     offs = torch.stack([px(prm[2 + k]) for k in range(5)])
-    kl, kr, kt, kb, ax, bx = (px(prm[7 + k]) for k in range(6))
     xs = torch.arange(W, dtype=torch.int32, device=plane.device)[None, :]
     ys = torch.arange(H, dtype=torch.int32, device=plane.device)[:, None]
-    x_loc = xs & (cs_h - 1)
-    in_x = (x_loc >= ax) & (x_loc < bx)
-    keep = ((xs == 0) & (kl != 0)) | ((xs == W - 1) & (kr != 0)) | \
-        ((ys == 0) & (kt != 0) & in_x) | ((ys == H - 1) & (kb != 0) & in_x)
+    x_loc, y_loc = xs & (cs_h - 1), ys & (cs_v - 1)
+    # the last column and row of each sample's CTB inside the picture
+    x_end = torch.clamp(xs - x_loc + cs_h, max=W) - 1
+    y_end = torch.clamp(ys - y_loc + cs_v, max=H) - 1
+
+    def within(v, r):
+        r = px(r)
+        return (v >= (r & 0xffff)) & (v < (r >> 16))
+    keep = ((x_loc == 0) & within(y_loc, prm[7])) | \
+        ((xs == x_end) & within(y_loc, prm[8])) | \
+        ((y_loc == 0) & within(x_loc, prm[9])) | \
+        ((ys == y_end) & within(x_loc, prm[10]))
     out = sao_math(pad_edge(plane.to(torch.int32), 1), typ, m1, offs, keep,
                    shift, pix_max)
     return out.to(torch.int16)
@@ -105,9 +226,9 @@ def _sao_plane_ref(plane, prm, cs_v, cs_h, shift, pix_max):
 
 def sao_apply_ref(planes, prms, sizes, shift, pix_max):
     """Plain PyTorch SAO (`fused_device._sao_apply`) of a list of planes.
-    planes: int16 [H, W] each; prms: the packed int32 [13, ch, cw]
-    per-CTB parameters of each (`pack_params`); sizes: (cs_v, cs_h) CTB
-    size of each in its samples.  Returns new int16 planes."""
+    planes: int16 [H, W] each; prms: the int32 [11, ch, cw] per-CTB table
+    of each (`ctb_tables`, `pack_params`); sizes: (cs_v, cs_h) CTB size of
+    each in its samples.  Returns new int16 planes."""
     return [_sao_plane_ref(x, p, cs_v, cs_h, shift, pix_max)
             for x, p, (cs_v, cs_h) in zip(planes, prms, sizes)]
 
@@ -134,9 +255,9 @@ def sao_apply(planes, prms, sizes, shift, pix_max):
             raise ValueError("sao_apply: contiguous, 8-byte aligned CUDA "
                              "int16 planes and int32 parameters expected")
         ch, cw = p.shape[1:]
-        if p.shape[0] != 13 or ch * cs_v < H or cw * cs_h < W or W % 4 or \
-                min(cs_v, cs_h) < MIN_CTB:
-            raise ValueError("sao_apply: parameters [13, ch, cw] must cover "
+        if p.shape[0] != TABLE_ROWS or ch * cs_v < H or cw * cs_h < W or \
+                W % 4 or min(cs_v, cs_h) < MIN_CTB:
+            raise ValueError("sao_apply: parameters [11, ch, cw] must cover "
                              "the plane, its width a multiple of 4 and its "
                              f"CTB at least {MIN_CTB}")
         out = torch.empty_like(x)
@@ -154,3 +275,31 @@ def sao_apply(planes, prms, sizes, shift, pix_max):
 
 # kernel launches (chip_smoke.py resets and reads it)
 sao_apply.launches = 0
+
+
+def as_wire(plane):
+    """A host plane as the contiguous int16 array that travels to the
+    device (samples have at most 12 bits)."""
+    return np.ascontiguousarray(plane, dtype=np.int16)
+
+
+def sao_frame_device(sps, pps, tabs, fb, device="cuda"):
+    """Device SAO over all planes of a frame, in place on fb.planes: every
+    plane that has SAO goes up as 16-bit samples with its per-CTB table,
+    through one `sao_apply`, and comes down."""
+    if not any(int(t) for t in tabs.sao_type.flat):
+        return
+    nc = 3 if sps.chroma_format_idc else 1
+    tables = ctb_tables(SaoFilter(sps, pps, tabs, fb), nc)
+    on = [c for c in range(nc) if tables[c] is not None]
+    if not on:
+        return
+    dev = torch.device(device)
+    cs = sps.ctb_size_y
+    done = sao_apply(
+        [torch.from_numpy(as_wire(fb.planes[c])).to(dev) for c in on],
+        [torch.from_numpy(tables[c]).to(dev) for c in on],
+        [(cs >> sps.vshift[c], cs >> sps.hshift[c]) for c in on],
+        sps.bit_depth - 5, (1 << sps.bit_depth) - 1)
+    for c, out in zip(on, done):
+        fb.planes[c][:] = out.cpu().numpy()

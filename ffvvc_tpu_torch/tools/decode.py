@@ -4,10 +4,16 @@ The same interface as `ffvvc_tpu.tools.decode`, with the port's device
 options:
 
     python -m ffvvc_tpu_torch.tools.decode in.bit out.yuv [--md5]
-        [--device cuda|cpu] [--device-pipeline] [--no-native-cabac]
+        [--device cuda|cpu] [--device-pipeline] [--device-lmcs]
+        [--device-deblock] [--device-sao] [--device-alf] [--no-native-cabac]
 
 --device-pipeline runs the fused post-recon filter chain (LMCS, deblock,
-SAO, ALF, CC-ALF) on --device; without it the decode runs on the host.
+SAO, ALF, CC-ALF) on --device.  --device-lmcs, --device-deblock,
+--device-sao and --device-alf (ALF and CC-ALF) run that one stage on
+--device, each with its own upload and download; they also take pictures
+whose slices or tiles forbid filtering across their boundaries, which the
+fused chain leaves to the host.  Without any of them the decode runs on
+the host.
 """
 import argparse
 import hashlib
@@ -23,6 +29,9 @@ def main(argv=None):
                     help="torch device of the filter chain (cuda or cpu)")
     ap.add_argument("--device-pipeline", action="store_true",
                     help="run the fused post-recon filter chain on --device")
+    for stage in ("lmcs", "deblock", "sao", "alf"):
+        ap.add_argument(f"--device-{stage}", action="store_true",
+                        help=f"run the {stage} stage on --device")
     ap.add_argument("--no-native-cabac", action="store_true")
     ap.add_argument("--md5", action="store_true",
                     help="print per-frame and stream MD5 (framemd5-style)")
@@ -34,6 +43,10 @@ def main(argv=None):
         data = f.read()
     cfg = DecoderConfig(device=args.device,
                         device_pipeline=args.device_pipeline,
+                        device_lmcs=args.device_lmcs,
+                        device_deblock=args.device_deblock,
+                        device_sao=args.device_sao,
+                        device_alf=args.device_alf,
                         native_cabac=not args.no_native_cabac)
     t0 = time.monotonic()
     frames = VVCDecoder(cfg).decode(data)

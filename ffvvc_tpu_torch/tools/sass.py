@@ -24,16 +24,18 @@ from ..ops import _build
 _FUNCTION = re.compile(r"Function : (\S+)")
 _INSTRUCTION = re.compile(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
                           r"([A-Z][A-Z0-9_]*(?:\.[A-Z0-9_]+)*)")
-_KERNEL = re.compile(r"\d+([a-z_]+_kernel)(?:ILb([01])E)?")
+_KERNEL = re.compile(r"\d+([a-z_]+_kernel)(?:I((?:L[bi]\d+E)+)E)?")
+_TEMPLATE_ARG = re.compile(r"L[bi](\d+)E")
 
 
 def kernel_name(mangled):
-    """`alf_kernel<1>` from the mangled symbol; the symbol when it has no
-    such part."""
+    """`alf_kernel<1,0>` from the mangled symbol (its bool and int template
+    arguments); the symbol when it has no such part."""
     m = _KERNEL.search(mangled)
     if m is None:
         return mangled
-    return m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+    args = _TEMPLATE_ARG.findall(m.group(2) or "")
+    return m.group(1) + (f"<{','.join(args)}>" if args else "")
 
 
 def opcode(mnemonic):

@@ -42,8 +42,12 @@ def test_fused_chain_formats(name):
 
 
 def test_fused_chain_transfer_budget():
-    """The port moves exactly the bytes the JAX package moves: one uint16
-    plane set down per frame, and the same planes + parameters up."""
+    """The port moves no more bytes than the JAX package: one uint16 plane
+    set down per frame, and up the same planes with fewer parameters.  It
+    sends no row tables (`alf0_row`, `alf0_vb`, `alfc_row`, `alfc_vb`,
+    `cc_row`, `cc_skip`: the kernels compute the rows from the row number),
+    the luma ALF set per CTB and not per 4x4 block, and SAO's per-CTB
+    parameters as one table of 11 rows for the JAX package's 13 arrays."""
     W = H = 96
     s = forge_inter_stream(slice_type=2, nframes=3, width=W, height=H,
                            seed=3, deblock=True, **TOOLS)
@@ -55,8 +59,26 @@ def test_fused_chain_transfer_budget():
     assert n == 3 == jfd.stats["frames"]
     plane_set = (W * H + 2 * (W // 2) * (H // 2)) * 2   # uint16 wire bytes
     assert fd.stats["down_bytes"] == n * plane_set == jfd.stats["down_bytes"]
-    assert fd.stats["up_bytes"] == jfd.stats["up_bytes"]
+    assert jfd.stats["up_bytes"] == 179600
+    assert fd.stats["up_bytes"] == 155444
     assert fd.stats["up_bytes"] < n * plane_set * 2.5
+
+
+def test_chain_uploads_no_unread_array(monkeypatch):
+    """No array that the chain's stages do not read reaches the device."""
+    seen = {}
+    real = fd.chain
+
+    def recording(meta, a):
+        seen.update(a)
+        return real(meta, a)
+    monkeypatch.setattr(fd, "chain", recording)
+    port_yuv(stream("intra_all"))
+    assert {"p0", "sao0_prm", "alf0_ctb_set", "cc1_set", "cc1_cf",
+            "lmcs_lut"} <= set(seen)
+    assert not [k for k in seen if k.endswith(("_row", "_vb", "_skip"))
+                or k in ("alf0_set", "sao0_typ")]
+    assert seen["alf0_ctb_set"].shape == (3, 3)
 
 
 def test_fused_chain_fallback_paths():

@@ -70,7 +70,8 @@ def _sao_case(rng, H, W, cs_v, cs_h, bd):
     same(fused, want)
     assert not np.array_equal(np.asarray(want), wide), "SAO changed nothing"
     return (torch.from_numpy(plane),
-            torch.from_numpy(sao_device.pack_params(p)), np.asarray(want))
+            torch.from_numpy(sao_device.pack_params(p, H, W, cs_v, cs_h)),
+            np.asarray(want))
 
 
 @pytest.mark.parametrize("bd,cs_v,cs_h,H,W,seed", [
@@ -189,7 +190,7 @@ def test_vb_reach_matches_row_offsets(luma, cs_v, H):
     `_alf_vb_arrays` builds from `_vb_row_offsets`, also in a last CTB row
     that is partial (1080 = 33 * 32 + 24)."""
     b, above = (3, 4) if luma else (2, 2)
-    rowsel, vbsel = fused_device._alf_vb_arrays(H, cs_v, b, above, luma)
+    rowsel, vbsel = jfd._alf_vb_arrays(H, cs_v, b, above, luma)
     ys = torch.arange(H)
     reach = alf_device.vb_reach(ys, cs_v, cs_v - above)
     for k, o in enumerate(alf_device._ROW_OFFSET):
@@ -209,12 +210,16 @@ def test_vb_reach_matches_row_offsets(luma, cs_v, H):
     (12, 0, 0, 32, 24, 40, 2),     # 4:4:4, CTB 32
 ])
 def test_cc_twin_matches_jax(bd, hs, vs, cs, Hc, Wc, seed):
+    """Both chroma planes through one call, coefficients by index and rows
+    from the row number, against the JAX kernel on each plane with the JAX
+    package's row tables (`_cc_arrays`); then one plane alone."""
     rng = np.random.default_rng(seed)
-    dst16, luma16, rowsel, skip, cf = cc_inputs(rng, Hc, Wc, cs, hs, vs, bd)
-    dst, luma = dst16.astype(np.int32), luma16.astype(np.int32)
+    dsts, luma16, ctb_sets, cf_tabs = cc_inputs(rng, Hc, Wc, cs, hs, vs, bd)
+    luma = luma16.astype(np.int32)
     b = 3
     pix_max, half = (1 << bd) - 1, 1 << (bd - 1)
     csv, csh = cs >> vs, cs >> hs
+    rowsel, skip = jfd._cc_arrays(Hc, cs, vs)
     P3l = np.pad(luma, b, mode="edge")
     # JAX Pallas: collocated luma, 7 tap planes, 7 coefficient planes
 
@@ -222,22 +227,52 @@ def test_cc_twin_matches_jax(bd, hs, vs, cs, Hc, Wc, seed):
         return P3l[rowsel[j]][:, b + dx:b + dx + ((Wc - 1) << hs) + 1:1 << hs]
     taps = ((0, 0), (1, -1), (1, 1), (2, -1), (2, 0), (2, 1), (3, 0))
     v = np.stack([at(rk, dx) for rk, dx in taps])
-    cf_px = np.stack([px(cf[:, :, j], csv, csh, Hc, Wc) for j in range(7)])
-    cf_skip = np.where(skip[None, :, None] != 0, 0, cf_px)
-    want = jalf._cc_pallas(dst, at(1, 0), v, cf_skip, half, pix_max)
-    fused = jfd._cc_filter(jnp.asarray(dst), jnp.asarray(P3l),
-                           jnp.asarray(rowsel), jnp.asarray(skip),
-                           {j: jnp.asarray(cf_px[j]) for j in range(7)}, hs,
-                           half, pix_max)
-    same(fused, want)
-    args = (torch.from_numpy(dst16), torch.from_numpy(luma16),
-            torch.from_numpy(rowsel).long(), torch.from_numpy(skip),
-            torch.from_numpy(cf), csv, csh, hs, half, pix_max)
-    got = alf_device.cc_filter_ref(*args)
-    assert got.dtype == torch.int16
-    same(got, want)
-    same(alf_device.cc_filter(*args), want)
-    assert not np.array_equal(np.asarray(want), dst), "CC-ALF changed nothing"
+    wants = []
+    for dst16, ctb_set, cf_tab in zip(dsts, ctb_sets, cf_tabs):
+        dst = dst16.astype(np.int32)
+        cf = cf_tab[ctb_set]                           # [ch, cw, 7]
+        cf_px = np.stack([px(cf[:, :, j], csv, csh, Hc, Wc)
+                          for j in range(7)])
+        cf_skip = np.where(skip[None, :, None] != 0, 0, cf_px)
+        want = jalf._cc_pallas(dst, at(1, 0), v, cf_skip, half, pix_max)
+        fused = jfd._cc_filter(jnp.asarray(dst), jnp.asarray(P3l),
+                               jnp.asarray(rowsel), jnp.asarray(skip),
+                               {j: jnp.asarray(cf_px[j]) for j in range(7)},
+                               hs, half, pix_max)
+        same(fused, want)
+        assert not np.array_equal(np.asarray(want), dst), \
+            "CC-ALF changed nothing"
+        wants.append(np.asarray(want))
+    t = torch.from_numpy
+    for n in (2, 1):
+        args = ([t(d) for d in dsts[:n]], t(luma16),
+                [t(x) for x in ctb_sets[:n]], [t(x) for x in cf_tabs[:n]],
+                csv, csh, hs, vs, half, pix_max)
+        for fn in (alf_device.cc_filter_ref, alf_device.cc_filter):
+            got = fn(*args)
+            assert len(got) == n and got[0].dtype == torch.int16
+            for g, w in zip(got, wants):
+                same(g, w)
+
+
+@pytest.mark.parametrize("vs", [0, 1])
+@pytest.mark.parametrize("cs,H", [(32, 1080), (64, 1080), (128, 1080),
+                                  (32, 96), (64, 200), (128, 240)])
+def test_cc_rows_match_row_tables(cs, vs, H):
+    """The luma tap rows CC-ALF computes from the chroma row number
+    (`cc_row_offsets`) equal the JAX package's row tables (`_cc_arrays`),
+    also in a last CTB row that is partial (1080 = 33 * 32 + 24)."""
+    Hc = H >> vs
+    rowsel, skip = jfd._cc_arrays(Hc, cs, vs)
+    ys = torch.arange(Hc)
+    offs, skips = alf_device.cc_row_offsets(ys, cs >> vs, vs)
+    rows = (ys << vs)[None, :] + offs
+    # the table indexes a luma plane padded by 3 rows, which the plain
+    # version and the kernel replace by clamping to the picture
+    assert int(rows.min()) >= -3 and int(rows.max()) <= H + 2
+    assert np.array_equal(rows.numpy() + 3, rowsel)
+    assert np.array_equal(skips.numpy(), skip != 0)
+    assert skips.any() == (vs == 0)
 
 
 # ---- plain PyTorch stages of the chain --------------------------------------

@@ -122,12 +122,20 @@ def test_sass_histogram_counts_opcodes():
         "\t\tFunction : _ZN43_GLOBAL__N__ab2f_10_filters_cu_3797ac3e"
         "9cc_kernelEPKsS1_iiPs",
         "        /*0000*/                   ULDC.64 UR4, c[0x0][0x248] ;",
+        "\t\tFunction : _ZN43_GLOBAL__N__ab2f_10_filters_cu_3797ac3e"
+        "10alf_kernelILb1ELb0EEEvNS_7AlfArgsE",
+        "        /*0000*/                   LDS.128 R8, [R2+0x10] ;",
+        "\t\tFunction : _ZN43_GLOBAL__N__ab2f_10_filters_cu_3797ac3e"
+        "9cc_kernelILi1ELi0ELb1EEEvNS_6CcArgsE",
+        "        /*0000*/                   LDG.E.128.CONSTANT R8, [R2.64] ;",
     ])
     got = sass.histogram(text)
     assert got == {
         "alf_kernel<1>": {"LDC": 1, "VIADDMNMX": 1, "BRA": 1, "IMAD.IADD": 1,
                           "IMAD": 1, "LDS": 1},
-        "cc_kernel": {"ULDC": 1}}
+        "cc_kernel": {"ULDC": 1},
+        "alf_kernel<1,0>": {"LDS": 1},
+        "cc_kernel<1,0,1>": {"LDG": 1}}
 
 
 def test_cuda_device_raises_without_cuda(monkeypatch):
@@ -148,8 +156,42 @@ def test_backend_tpu_refused():
     dict(device_lmcs=True), dict(device_mc=True), dict(device_intra=True),
     dict(mesh_shape=(1, 2))])
 def test_unported_toggle_raises(toggle):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+    """The per-stage filter toggles are ported and construct; the toggles
+    still to be ported raise, each naming its ROADMAP.md item."""
+    items = {"device_mc": "item 7", "device_intra": "item 8",
+             "mesh_shape": "item 11"}
+    (name, value), = toggle.items()
+    if name not in items:
+        assert getattr(DecoderConfig(device="cpu", **toggle), name) is True
+        return
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP.md queue 1 {items[name]}"):
         DecoderConfig(device="cpu", **toggle)
+
+
+def test_stage_toggles_construct_together():
+    cfg = DecoderConfig(device="cpu", device_sao=True, device_alf=True,
+                        device_deblock=True, device_lmcs=True,
+                        device_pipeline=True)
+    assert cfg.device_sao and cfg.device_alf and cfg.device_deblock and \
+        cfg.device_lmcs and cfg.device_pipeline
+    VVCDecoder(cfg)
+
+
+def test_decode_tool_flags(tmp_path, capsys):
+    """`tools.decode` with the per-stage flags writes the host decode's
+    bytes."""
+    from ffvvc_tpu_torch.tools import decode
+    from ffvvc_tpu_torch.tools.forge import forge_inter_stream
+    bit, out = tmp_path / "in.bit", tmp_path / "out.yuv"
+    s = forge_inter_stream(**STREAM_KW)
+    bit.write_bytes(s)
+    want = b"".join(f.to_yuv_bytes() for f in VVCDecoder(
+        DecoderConfig(device="cpu")).decode(s))
+    decode.main([str(bit), str(out), "--device", "cpu", "--device-lmcs",
+                 "--device-deblock", "--device-sao", "--device-alf"])
+    assert out.read_bytes() == want
+    capsys.readouterr()
 
 
 def test_decoder_needs_port_config():
@@ -182,7 +224,7 @@ def test_wrapper_refuses_other_devices():
     """A wrapper runs its twin only for CPU tensors; any other device
     launches the kernel (CUDA) or raises."""
     plane = torch.zeros((16, 16), dtype=torch.int16, device="meta")
-    prm = torch.zeros((13, 1, 1), dtype=torch.int32, device="meta")
+    prm = torch.zeros((11, 1, 1), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         sao_device.sao_apply([plane], [prm], [(16, 16)], 3, 255)
     i32 = dict(dtype=torch.int32, device="meta")
@@ -199,7 +241,18 @@ def test_wrapper_refuses_other_devices():
             16, 16, 255)
     with pytest.raises(ValueError, match="unsupported device"):
         alf_device.cc_filter(
-            plane, torch.zeros((32, 32), dtype=torch.int16, device="meta"),
-            torch.zeros((4, 16), dtype=torch.int64, device="meta"),
-            torch.zeros((16,), **i32), torch.zeros((1, 1, 7), **i32), 16, 16,
-            1, 128, 255)
+            [plane], torch.zeros((32, 32), dtype=torch.int16, device="meta"),
+            [torch.zeros((1, 1), **i32)], [torch.zeros((1, 7), **i32)], 16,
+            16, 1, 1, 128, 255)
+    for fn, args in ((alf_device.alf_filter_chroma,
+                      ([plane], [torch.zeros((1, 1), **i32)],
+                       [torch.zeros((1, 12), **i32)],
+                       [torch.zeros((1, 12), **i32)], 16, 16, 255)),
+                     (alf_device.cc_filter,
+                      ([plane], torch.zeros((32, 32), dtype=torch.int16,
+                                            device="meta"),
+                       [torch.zeros((1, 1), **i32)],
+                       [torch.zeros((1, 7), **i32)], 16, 16, 1, 1, 128,
+                       255))):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(*args, edges=torch.zeros((1, 1), **i32))
