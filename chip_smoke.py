@@ -40,7 +40,33 @@ Phases, each of which raises on a fault (the script then exits non-zero):
    path is driven with the launch counts set to 0 just before and read
    just after, and every kernel must have launched.  A second, serial
    decode prints the time per stage.
-5. No module of the JAX package and no JAX was loaded.
+5. Functions on tensors of device MC and the inverse transform
+   (ops/mc_device.py, ops/inter_device.py, ops/itx.py; plain PyTorch, as
+   they are XLA functions and no kernels in the JAX package): every family
+   on seeded inputs once on the card and once on the CPU, torch.equal: puts
+   for luma and chroma in all four classes, with wraparound, with boxes,
+   with origins outside the picture, at 8, 10 and 12 bits; the DMVR
+   bilinear prefetch; the DMVR refinement on pairs with ties; BDOF; PROF;
+   GPM; the plain and weighted finals with negative weights and offsets;
+   the inverse transform for DCT2, DST7 and DCT8 at every size from 1xN to
+   64x64 with coefficients at +-(2^15 - 1) against the NumPy int64 version
+   (its float64 products must be the exact integers), with its time beside
+   an int64 multiply-and-sum; dequantisation; the residual scatter.
+6. Inter frames: `inter-b`, a 1080p10 hierarchical stream (IDR, P, B with a
+   past and a future reference: DMVR and BDOF armed) with deblock, SAO, ALF
+   and CC-ALF, decoded by the host, by device_mc alone (once as it comes,
+   once with a pixel thread that starts late, so that the references are
+   in flight and the row-band form runs: more frame_device_mc calls than
+   inter frames) and by device_mc with device_pipeline and row progress off
+   (the whole-frame form, the hand kernels on the same frames); all
+   md5-equal; all four put
+   classes, DMVR and BDOF counted.  Per inter frame: descriptors, buckets,
+   batched calls, MB up and down and the ms of the MC stage beside the host
+   C MC's.  Then the other inter tools at 416x240 through device_mc (affine
+   with PROF, SbTMVP, GPM, weighted P and bi, BCW, wraparound, mono LMCS,
+   DMVR at 12 bits) and one golden-parse decode through the batched inverse
+   transform, each md5-equal to the host decode.
+7. No module of the JAX package and no JAX was loaded.
 
 The last two lines of stdout are a JSON summary of the kernels and the
 contract line {"ok": true, "device": {...}}.
@@ -69,6 +95,7 @@ from ffvvc_tpu_torch.native import (  # noqa: E402
 from ffvvc_tpu_torch.ops import _build  # noqa: E402
 from ffvvc_tpu_torch.ops import alf_device, sao_device  # noqa: E402
 from ffvvc_tpu_torch.ops import fused_device as fd  # noqa: E402
+from ffvvc_tpu_torch.ops import inter_device, itx, mc_device  # noqa: E402
 from ffvvc_tpu_torch.ops.kernel_inputs import (  # noqa: E402
     alf_chroma_inputs, alf_luma_inputs, cc_inputs, edge_words, sao_inputs,
     sao_restore_inputs)
@@ -573,6 +600,516 @@ def decode(label, path, stream, ref_md5, smi):
     return launches
 
 
+# ---- device MC and the inverse transform ------------------------------------
+
+# device of the decodes and functions below ("cpu" rehearses them at a small
+# size where there is no card: set DEVICE, W and H before calling them)
+DEVICE = "cuda"
+INTER_B = dict(seed=SEED, qp=QP, bit_depth=BD,
+               sps_temporal_mvp_enabled_flag=1, sps_bdof_enabled_flag=1,
+               sps_dmvr_enabled_flag=1, sps_sao_enabled_flag=1,
+               sps_alf_enabled_flag=1, sps_ccalf_enabled_flag=1)
+_AFFINE = dict(sps_affine_enabled_flag=1,
+               sps_five_minus_max_num_subblock_merge_cand=0,
+               sps_6param_affine_enabled_flag=1,
+               sps_affine_prof_enabled_flag=1)
+_GPM = dict(sps_gpm_enabled_flag=1,
+            sps_max_num_merge_cand_minus_max_num_gpm_cand=0,
+            sps_six_minus_max_num_merge_cand=1)
+# the other inter tools, 3 frames of 416x240 each: name -> (forge function,
+# arguments, the mc_device.stats count that must not be 0)
+TOOL_STREAMS = {
+    "affine_prof": ("forge_inter_stream", dict(
+        slice_type=0, seed=2, **_AFFINE), "prof_blocks"),
+    "sbtmvp": ("forge_inter_stream", dict(
+        slice_type=0, seed=5, sps_temporal_mvp_enabled_flag=1,
+        sps_sbtmvp_enabled_flag=1, **_AFFINE), "put_buckets"),
+    "gpm": ("forge_inter_stream", dict(slice_type=0, seed=4, **_GPM),
+            "gpm_blocks"),
+    "weighted_p": ("forge_inter_stream", dict(
+        slice_type=1, seed=2, sps_weighted_pred_flag=1,
+        pps_kw=dict(pps_weighted_pred_flag=1)), "weighted_blocks"),
+    "weighted_bi_10bit": ("forge_inter_stream", dict(
+        slice_type=0, seed=1, bit_depth=10, sps_weighted_bipred_flag=1,
+        pps_kw=dict(pps_weighted_bipred_flag=1)), "weighted_blocks"),
+    "bcw": ("forge_inter_stream", dict(
+        slice_type=0, seed=4, sps_bcw_enabled_flag=1), "weighted_blocks"),
+    "wraparound": ("forge_inter_stream", dict(
+        slice_type=1, seed=5, sps_ref_wraparound_enabled_flag=1,
+        pps_kw=dict(pps_ref_wraparound_enabled_flag=1,
+                    pps_pic_width_minus_wraparound_offset=0)), "put_buckets"),
+    "lmcs_mono": ("forge_inter_stream", dict(
+        slice_type=1, seed=3, bit_depth=10, sps_lmcs_enabled_flag=1,
+        chroma=0), "put_buckets"),
+    "dmvr_12bit": ("forge_hier_stream", dict(
+        seed=2, ngops=1, bit_depth=12, sps_temporal_mvp_enabled_flag=1,
+        sps_bdof_enabled_flag=1, sps_dmvr_enabled_flag=1), "dmvr_subblocks"),
+}
+
+
+def on_both(dev, fn, arrays, *static):
+    """fn(*tensors, *static) on the CPU and on `dev`; the results (a tensor
+    or a tuple of them) must be equal.  Returns the result on `dev`."""
+    cpu = fn(*[torch.from_numpy(a) for a in arrays], *static)
+    got = fn(*[torch.from_numpy(a).to(dev) for a in arrays], *static)
+    for c, g in zip(_as_list(cpu), _as_list(got)):
+        if g.device.type != dev.type or not torch.equal(c, g.cpu()):
+            raise AssertionError(
+                f"{fn.__name__}{static} differs between cpu and {dev}: "
+                f"{int((c != g.cpu()).sum())} of {c.numel()} values")
+    return got
+
+
+def check_functions(dev, smi):
+    """Every function on tensors of ops/mc_device.py, ops/inter_device.py
+    and ops/itx.py: the card's result equals the CPU's on seeded inputs."""
+    rng = np.random.default_rng(SEED)
+    i32 = np.int32
+    ph, pw = 96, 128                  # the reference plane of the puts
+
+    def ints(lo, hi, shape):
+        return rng.integers(lo, hi, shape).astype(i32)
+
+    n = 0
+    for bd in (8, 10, 12):
+        plane = ints(0, 1 << bd, (ph, pw))
+        for is_luma in (True, False):
+            for w, h in ((4, 4), (16, 8), (64, 64)):
+                B = 24
+                for variant in ("plain", "wrap", "boxed"):
+                    for fclass in range(4):
+                        x0, y0 = ints(0, pw - 24, B), ints(0, ph - 24, B)
+                        prm = np.stack([
+                            ints(-8, pw + 4, B), ints(-8, ph + 4, B),
+                            ints(1, 16, B) * (fclass & 1),
+                            ints(1, 16, B) * (fclass >> 1),
+                            x0, x0 + ints(1, 24, B), y0, y0 + ints(1, 24, B)],
+                            1)
+                        hf = int(rng.integers(0, 3)) if is_luma else 0
+                        on_both(dev, mc_device._put_bucket, [plane, prm], w,
+                                h, is_luma, bd, hf, hf, fclass,
+                                pw - 16 if variant == "wrap" else 0,
+                                variant == "boxed")
+                        n += 1
+    print(f"functions: puts equal on {dev} and cpu: {n} buckets (luma and "
+          "chroma, 4 classes, plain, wraparound and boxed, origins outside "
+          "the picture, 8, 10 and 12 bits)")
+    n = 0
+    dfilt = mc_device._dmvr_filters()
+    for bd in (10, 12):
+        plane = ints(0, 1 << bd, (ph, pw))
+        for wrap in (0, pw - 16):
+            for mclass in range(4):
+                B = 24
+                on_both(dev, mc_device._dmvr_bilin_batch, [
+                    plane, ints(-8, pw + 4, B), ints(-8, ph + 4, B),
+                    dfilt[ints(1, 16, B) * (mclass & 1)],
+                    dfilt[ints(1, 16, B) * (mclass >> 1)]],
+                    20, 12, bd, mclass, wrap)
+                n += 1
+    print(f"functions: DMVR bilinear prefetch equal: {n} buckets (4 classes, "
+          "10 and 12 bits, with and without wraparound)")
+    n = ties = 0
+    for bw, bh in ((16, 16), (16, 8), (8, 16), (8, 8)):
+        B = 64
+        t0 = ints(0, 1 << 10, (B, bh + 4, bw + 4))
+        t1 = np.where(rng.random((B, 1, 1)) < 0.4, t0 + ints(-2, 3, (B, 1, 1)),
+                      ints(0, 1 << 10, t0.shape)).astype(i32)
+        t1[0] = t0[0]                        # every SAD 0: the early exit
+        t1[1] = t0[1] + 40                   # 25 equal SADs, search on
+        t0[2] = 512
+        t1[2] = 521                          # flat pair: denom == 0
+        for b, (dy, dx) in zip(range(3, 11), (
+                (1, 0), (-2, 2), (0, -1), (2, 2), (-1, -2), (1, 1), (-1, 1),
+                (0, 1))):
+            # shifted copies: a unique minimum of 0 off the centre, and
+            # sm == sc or sp == sc where a neighbour is as good
+            big = ints(0, 1 << 10, (bh + 12, bw + 12))
+            t0[b] = big[4 + dy:8 + dy + bh, 4 + dx:8 + dx + bw]
+            t1[b] = big[4 - dy:8 - dy + bh, 4 - dx:8 - dx + bw]
+        dmv, _ = on_both(dev, inter_device._dmvr_refine, [t0, t1], bw, bh)
+        if not dmv[3:11].any():
+            raise AssertionError("the shifted pairs were not refined")
+        ties += 3
+        n += B
+    print(f"functions: DMVR refinement equal: {n} pairs, {ties} with every "
+          "candidate tied")
+    n = 0
+    for bd in (8, 10, 12):
+        for w, h in ((8, 8), (16, 8), (8, 16), (16, 16)):
+            B = 32
+            s0 = ints(-(1 << 13), 1 << 14, (B, h + 2, w + 2))
+            s1 = ints(-(1 << 13), 1 << 14, (B, h + 2, w + 2))
+            s1[0] = s0[0]
+            s1[1] = s0[1] + 3
+            s0[2] = s1[2] = 1 << 12          # flat: sgx2 == sgy2 == 0
+            on_both(dev, inter_device._bdof, [s0, s1], w, h, bd)
+            on_both(dev, mc_device._bdof_full_batch, [
+                np.ascontiguousarray(s0[:, 1:-1, 1:-1]),
+                np.ascontiguousarray(s1[:, 1:-1, 1:-1]), s0, s1], w, h, bd)
+            n += 2 * B
+    print(f"functions: BDOF equal: {n} blocks of 8x8 to 16x16 at 8, 10 and 12 "
+          "bits, negative samples and flat blocks included")
+    n = 0
+    for bd in (8, 10, 12):
+        B = 64
+        s0 = ints(-(1 << 13), 1 << 14, (B, 8, 16))
+        s1 = ints(-(1 << 13), 1 << 14, (B, 8, 16))
+        par = [ints(0, 8, B)] + [ints(-128, 128, B) for _ in range(4)]
+        on_both(dev, mc_device._mc_avg_batch, [s0, s1], bd)
+        on_both(dev, mc_device._mc_uni_batch, [s0], bd)
+        on_both(dev, mc_device._mc_gpm_batch, [s0, s1, ints(0, 9, s0.shape)],
+                bd)
+        on_both(dev, mc_device._mc_w_avg_batch, [s0, s1, *par], bd)
+        on_both(dev, mc_device._mc_uni_w_batch, [s0, par[0], par[1], par[3]],
+                bd)
+        on_both(dev, mc_device._prof_apply_batch, [
+            ints(-(1 << 13), 1 << 14, (B, 4, 4)),
+            ints(0, 1 << bd, (B, 6, 6)) << (14 - bd),
+            ints(-31, 32, (B, 4, 4)), ints(-31, 32, (B, 4, 4))], bd)
+        n += 6
+    print(f"functions: finals equal: {n} batches (average, uni, GPM, weighted "
+          "bi and uni with negative weights and offsets, PROF) at 8, 10 and "
+          "12 bits, negative samples included")
+    # the inverse transform: float64 products against NumPy int64
+    sizes = {itx.DCT2: (1, 2, 4, 8, 16, 32, 64), itx.DST7: (4, 8, 16, 32),
+             itx.DCT8: (4, 8, 16, 32)}
+    peak = (1 << 15) - 1
+    n = 0
+    for trh, ws in sizes.items():
+        for trv, hs in sizes.items():
+            for w in ws:
+                for h in hs:
+                    if w == h == 1:
+                        continue
+                    c = np.concatenate([
+                        np.full((1, h, w), peak), np.full((1, h, w), -peak),
+                        rng.choice([-peak, peak], (6, h, w)),
+                        ints(-peak, peak + 1, (8, h, w))]).astype(i32)
+                    for bd in (8, 10, 12):
+                        got = on_both(dev, itx.itx_batch, [c], w, h, trh, trv,
+                                      15, bd)
+                        want = itx.itx_batch_host(c, w, h, trh, trv, 15, bd)
+                        if not np.array_equal(got.cpu().numpy(), want):
+                            raise AssertionError(
+                                f"itx_batch {w}x{h} kinds {trh},{trv} at "
+                                f"{bd} bits differs from the int64 version")
+                        n += 1
+    print(f"functions: inverse transform equal on {dev}, on cpu and in NumPy "
+          f"int64: {n} buckets (DCT2, DST7, DCT8, 1xN to 64x64, coefficients "
+          f"at +-{peak}, 8, 10 and 12 bits)")
+    B = 64
+    on_both(dev, itx.dequant_batch, [
+        ints(-(1 << 15), 1 << 15, (B, 8, 16)), ints(1, (57 << 10) * 64, B),
+        ints(1, 14, B)])
+    cells = rng.permutation((ph // 8) * (pw // 16))[:B]
+    on_both(dev, itx.scatter_residual, [
+        ints(0, 1024, (ph, pw)), ints(-1500, 1500, (B, 8, 16)),
+        (cells % (pw // 16) * 16).astype(i32),
+        (cells // (pw // 16) * 8).astype(i32)], 16, 8, 1023)
+    print("functions: dequantisation (products beyond 2^31) and residual "
+          "scatter equal")
+    if dev.type != "cuda":
+        return
+    # what the integer product costs: float64 matmul (the port's choice)
+    # beside an int64 multiply and sum, on the largest and a common bucket
+    for w, B in ((64, 256), (8, 8192)):
+        c = torch.from_numpy(ints(-peak, peak + 1, (B, w, w))).to(dev)
+        m = torch.from_numpy(itx.matrix(itx.DCT2, w).astype(np.int64)).to(dev)
+        c64 = c.to(torch.int64).transpose(1, 2)
+
+        def by_sum():
+            return (c64[:, :, :, None] * m[None, None]).sum(2)
+        if not torch.equal(by_sum(), itx._int_matmul(c64, m.double())):
+            raise AssertionError("float64 product != int64 multiply and sum")
+        print(f"functions: one pass over {B} blocks of {w}x{w}: float64 "
+              f"matmul {time_ms(lambda: itx._int_matmul(c64, m.double())):.4f}"
+              f" ms, int64 multiply and sum {time_ms(by_sum):.4f} ms; the "
+              "whole itx_batch "
+              f"{time_ms(lambda: itx.itx_batch(c, w, w, 0, 0, 15, BD)):.4f} "
+              f"ms [{smi}]")
+
+
+def forge_hier_alf(seed, width, height, qp, bit_depth, **sps_kw):
+    """The forge's hierarchical GOP (forge_hier_stream with one GOP: an IDR,
+    a P frame at POC 2 and a B frame at POC 1 between them, whose one past
+    and one future reference at equal distances arm DMVR and BDOF), with
+    ALF and CC-ALF switched on in every slice as forge_inter_stream does
+    it: forge_hier_stream itself sets their SPS flags only, sends no APS,
+    and its decode never reaches ALF.  No LMCS: in 4:2:0 it brings chroma
+    residual scaling, which takes the slice off the native path that
+    device_mc serves."""
+    from ffvvc_tpu_torch.tools import forge as F
+    sps_r = F.build_sps(width, height, bit_depth=bit_depth, min_qt_log2=2,
+                        max_mtt_depth=2, **sps_kw)
+    pps_r = F.build_pps(sps_r)
+    stream = F.write_nal(F.NalType.SPS, F.write_sps(sps_r))
+    stream += F.write_nal(F.NalType.PPS, F.write_pps(pps_r, sps_r))
+    policy = F.FuzzPolicy(seed)
+    ccalf = bool(sps_r.sps_ccalf_enabled_flag)
+    alf_aps = F.make_alf_aps(policy.rng, chroma=True, ccalf=ccalf)
+    stream += F.write_nal(F.NalType.PREFIX_APS, F.write_aps(alf_aps))
+    idr = None
+    for poc, slice_type, deltas in ((0, F.SLICE_I, None),
+                                    (2, F.SLICE_P, ([-2], [])),
+                                    (1, F.SLICE_B, ([-1], [1]))):
+        nal, shim = F.forge_frame(
+            sps_r, pps_r, policy, qp=qp, poc=poc, idr=poc == 0,
+            slice_type=slice_type, ref_deltas=deltas, collocated=idr,
+            alf_aps=alf_aps, ccalf=ccalf)
+        stream += nal
+        idr = idr or shim
+    return stream
+
+
+def forge_cached(fn, **kw):
+    """A stream of the port's forge (`fn` names one of its functions, or is
+    one of this script's), cached in the temp directory."""
+    from ffvvc_tpu_torch.tools import forge
+    name, fn = (fn, getattr(forge, fn)) if isinstance(fn, str) else \
+        (fn.__name__, fn)
+    key = hashlib.sha256(repr((name, sorted(kw.items()))).encode()
+                         ).hexdigest()[:16]
+    cache = os.path.join(tempfile.gettempdir(), f"ffvvc_smoke_{key}.bit")
+    if os.path.exists(cache):
+        with open(cache, "rb") as f:
+            return f.read()
+    t0 = time.monotonic()
+    stream = fn(**kw)
+    print(f"forged {name} {kw.get('width')}x{kw.get('height')}: {len(stream)} "
+          f"bytes in {time.monotonic() - t0:.1f} s")
+    with open(cache + ".tmp", "wb") as f:
+        f.write(stream)
+    os.replace(cache + ".tmp", cache)
+    return stream
+
+
+class McLog:
+    """Records every frame_device_mc call of a decode: what it added to
+    mc_device.stats, its seconds, and the picture it predicted."""
+
+    def __enter__(self):
+        self.calls, self.orig = [], mc_device.frame_device_mc
+
+        def spy(jobs, sps, bd, device="cuda"):
+            before = dict(mc_device.stats, put_class=None)
+            t0 = time.perf_counter()
+            self.orig(jobs, sps, bd, device=device)
+            dt = time.perf_counter() - t0
+            delta = {k: v - before[k] for k, v in mc_device.stats.items()
+                     if k != "put_class"}
+            self.calls.append((id(jobs[0][0].fb), dt, delta))
+        mc_device.frame_device_mc = spy
+        return self
+
+    def __exit__(self, *exc):
+        mc_device.frame_device_mc = self.orig
+
+    def frames(self):
+        """Per predicted picture, in decode order: (calls, seconds, sums)."""
+        out = {}
+        for fb, dt, delta in self.calls:
+            n, secs, total = out.get(fb, (0, 0.0, {}))
+            out[fb] = (n + 1, secs + dt,
+                       {k: total.get(k, 0) + v for k, v in delta.items()})
+        return list(out.values())
+
+
+class LatePixels(concurrent.futures.ThreadPoolExecutor):
+    """A pixel thread for the decoder that starts every job `delay` seconds
+    late: a host whose pixel stages are still running when the next frame
+    has been parsed.  That is when the decoder's MC waits per CTU row on its
+    references and device_mc takes the row-band form; on a quick host the
+    references are final by then and it takes the whole-frame form."""
+
+    def __init__(self, delay):
+        super().__init__(max_workers=1, thread_name_prefix="ffvvc-pixels")
+        self.delay = delay
+
+    def submit(self, fn):
+        def late():
+            time.sleep(self.delay)
+            return fn()
+        return super().submit(late)
+
+
+def mc_decode(tag, stream, ref_md5, host_mc, smi, n_inter, late_pixels=0.0,
+              **toggles):
+    """One decode through device_mc on DEVICE, checked against the host
+    decode's md5; prints what the device MC did per inter frame, beside
+    `host_mc`, the ms the host C MC takes for one.  Returns the
+    mc_device.stats of the decode."""
+    from ffvvc_tpu_torch import DecoderConfig, VVCDecoder
+    mc_device.reset_stats()
+    fd.reset_stats()
+    dec = VVCDecoder(DecoderConfig(device=DEVICE, device_mc=True, **toggles))
+    if late_pixels:
+        dec._pix_exec = LatePixels(late_pixels)
+    with McLog() as log:
+        t0 = time.monotonic()
+        frames = dec.decode(stream)
+        dt = time.monotonic() - t0
+    if late_pixels:
+        dec._pix_exec.shutdown()
+    md5, n = yuv_md5(frames)
+    stats = dict(mc_device.stats)
+    print(f"{tag} device_mc decode {json.dumps(toggles)}: {n} frames in "
+          f"{dt:.3f} s" + (f" with every pixel job started {late_pixels} s "
+                           "late" if late_pixels else f" = {n / dt:.3f} fps")
+          + f", md5 {md5} [{smi}]")
+    if md5 != ref_md5:
+        raise AssertionError(f"{tag} device_mc decode md5 {md5} != host "
+                             f"{ref_md5}")
+    per_frame = log.frames()
+    if len(per_frame) != n_inter:
+        raise AssertionError(f"{tag} device MC ran on {len(per_frame)} of "
+                             f"{n_inter} inter frames")
+    for i, (calls, secs, d) in enumerate(per_frame):
+        shares = {k[:-2]: round(d[k] * 1e3, 1) for k in (
+            "collect_s", "dmvr_s", "expand_s", "put_s", "finals_s",
+            "writeback_s")}
+        print(f"{tag} inter frame {i}: {calls} frame_device_mc calls, "
+              f"{d['descriptors']} descriptors, {d['put_buckets']} put "
+              f"buckets of {d['put_blocks']} blocks, {d['bilin_buckets']} "
+              f"prefetch buckets, {d['dmvr_subblocks']} DMVR subblocks, "
+              f"{d['bdof_blocks']} BDOF blocks, {d['prof_blocks']} PROF "
+              f"blocks, {d['finals_buckets']} finals buckets, "
+              f"{d['launches']} batched calls, {d['up_bytes'] / 1e6:.3f} MB "
+              f"up, {d['down_bytes'] / 1e6:.3f} MB down, {secs * 1e3:.1f} ms "
+              f"in the MC stage (host C MC {host_mc:.1f} ms): "
+              f"{json.dumps(shares)} [{smi}]")
+    return stats
+
+
+def inter_b(smi):
+    """The slice at full width: the 1080p10 hierarchical stream on the
+    host, through device_mc alone and through device_mc with the fused
+    chain.  Returns the hand kernels' launch counts of the last."""
+    from ffvvc_tpu_torch import DecoderConfig, VVCDecoder
+    tag = "[inter-b]"
+    stream = forge_cached(forge_hier_alf, width=W, height=H, **INTER_B)
+    # the host reference, serial and timed per stage: every toggle off
+    dec = VVCDecoder(DecoderConfig(device=DEVICE, pipeline_frames=False,
+                                   profile=True))
+    t0 = time.monotonic()
+    ref_md5, n = yuv_md5(dec.decode(stream))
+    dt = time.monotonic() - t0
+    n_inter = n - 1
+    host_mc = dec.stage_times["inter"] / n_inter * 1e3
+    print(f"{tag} host decode, serial: {n} frames in {dt:.3f} s, md5 "
+          f"{ref_md5}; host C MC {host_mc:.1f} ms per inter frame on "
+          f"{os.cpu_count()} cores; ms per frame by stage: "
+          + json.dumps({k: round(v / n * 1e3, 1)
+                        for k, v in dec.stage_times.items()}))
+    if n != 3:
+        raise AssertionError(f"{tag} host decode gave {n} frames")
+    md5_pipelined, _ = yuv_md5(VVCDecoder(DecoderConfig(device=DEVICE)).decode(
+        stream))
+    if md5_pipelined != ref_md5:
+        raise AssertionError(f"{tag} the host decode differs from itself")
+    # device_mc alone, as configured by default; which form it takes depends
+    # on whether the references' pixel stages have ended by then
+    mc_decode(tag + "[default]", stream, ref_md5, host_mc, smi, n_inter)
+    # the row-band form: row progress on and the references still in flight
+    stats = mc_decode(tag + "[rows]", stream, ref_md5, host_mc, smi, n_inter,
+                      late_pixels=1.0)
+    if stats["calls"] <= n_inter:
+        raise AssertionError(f"{tag} the row-band form made "
+                             f"{stats['calls']} calls for {n_inter} frames")
+    # device_mc with the fused chain, one call per frame, the hand kernels
+    # on the same frames: counts from zero just before, read just after
+    for fn, *_ in KERNELS.values():
+        fn.launches = fn.edge_launches = 0
+    stats = mc_decode(tag + "[whole+fused]", stream, ref_md5, host_mc, smi,
+                      n_inter, device_pipeline=True, row_progress=False)
+    launches = {k: fn.launches - fn.edge_launches
+                for k, (fn, which, _, _) in KERNELS.items()
+                if which != "edges" and "/" not in k}
+    print(f"{tag}[whole+fused] hand-kernel launches: {json.dumps(launches)}; "
+          f"fused chain ran on {fd.stats['frames']} of {n} frames; put "
+          f"buckets by class (copy, h, v, hv): {stats['put_class']}")
+    if stats["calls"] != n_inter or fd.stats["frames"] != n or \
+            (DEVICE == "cuda" and not all(launches.values())):
+        raise AssertionError(f"{tag} whole-frame form: {stats['calls']} "
+                             f"calls, fused on {fd.stats['frames']} frames, "
+                             f"launches {launches}")
+    if not (all(stats["put_class"]) and stats["dmvr_subblocks"]
+            and stats["bdof_blocks"]):
+        raise AssertionError(f"{tag} a put class, DMVR or BDOF never ran: "
+                             f"{stats}")
+    # where the MC stage's time goes: device_mc alone, serial (no reference
+    # in flight, so one call per frame), under the profiler
+    mc_device.reset_stats()
+    dec = VVCDecoder(DecoderConfig(device=DEVICE, device_mc=True,
+                                   pipeline_frames=False, profile=True))
+    if DEVICE == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            dec.decode(stream)
+        busy = sorted(((e.self_device_time_total, e.count, e.key)
+                       for e in prof.key_averages()), reverse=True)
+        print(f"{tag}[whole] serial decode: device busy "
+              f"{sum(b[0] for b in busy) / n_inter / 1e3:.3f} ms per inter "
+              f"frame in {sum(b[1] for b in busy) / n_inter:.0f} kernels and "
+              "copies; top device work per inter frame: "
+              + "; ".join(f"{k[:48]} x{c / n_inter:g} "
+                          f"{us / n_inter / 1e3:.3f} ms"
+                          for us, c, k in busy[:6]))
+    else:
+        dec.decode(stream)
+    st = mc_device.stats
+    print(f"{tag}[whole] serial decode: MC stage "
+          f"{dec.stage_times['inter'] / n_inter * 1e3:.1f} ms per inter "
+          f"frame (host C MC {host_mc:.1f} ms); ms per inter frame: "
+          + json.dumps({k[:-2]: round(v / n_inter * 1e3, 1)
+                        for k, v in st.items() if k.endswith("_s")})
+          + f"; {st['up_bytes'] / n_inter / 1e6:.3f} MB up, "
+          f"{st['down_bytes'] / n_inter / 1e6:.3f} MB down, "
+          f"{st['launches'] / n_inter:.0f} batched calls per inter frame "
+          f"[{smi}]")
+    return launches
+
+
+def inter_tools(smi):
+    """The other inter tools at 416x240 through device_mc, and the
+    golden-parse decode through the batched inverse transform."""
+    from ffvvc_tpu_torch import DecoderConfig, VVCDecoder
+    for name, (fn, kw, engaged) in TOOL_STREAMS.items():
+        if fn == "forge_inter_stream":
+            kw = dict(kw, nframes=3)
+        stream = forge_cached(fn, width=416, height=240, deblock=True, **kw)
+        ref_md5, n = yuv_md5(VVCDecoder(DecoderConfig(device=DEVICE)).decode(
+            stream))
+        mc_device.reset_stats()
+        md5, _ = yuv_md5(VVCDecoder(DecoderConfig(
+            device=DEVICE, device_mc=True)).decode(stream))
+        st = mc_device.stats
+        print(f"[tools/{name}] {n} frames of 416x240 through device_mc: md5 "
+              f"{md5}; {st['calls']} calls, {st['descriptors']} descriptors, "
+              f"{st['put_buckets']} put buckets, {engaged} {st[engaged]}")
+        if md5 != ref_md5 or n != 3 or not st[engaged]:
+            raise AssertionError(f"[tools/{name}] md5 {md5} != host "
+                                 f"{ref_md5}, or {engaged} is 0")
+    stream = forge_cached("forge_inter_stream", width=416, height=240,
+                          slice_type=0, nframes=2, seed=7, deblock=True,
+                          bit_depth=10, sps_sao_enabled_flag=1)
+    ref_md5, n = yuv_md5(VVCDecoder(DecoderConfig(device=DEVICE)).decode(
+        stream))
+    os.environ["FFVVC_ITX"] = "device"
+    itx.reset_stats()
+    t0 = time.monotonic()
+    md5, _ = yuv_md5(VVCDecoder(DecoderConfig(
+        device=DEVICE, native_parse=False)).decode(stream))
+    st = itx.stats
+    print(f"[itx] {n} frames of 416x240, golden parse, FFVVC_ITX=device: md5 "
+          f"{md5} in {time.monotonic() - t0:.1f} s; {st['buckets']} buckets "
+          f"of {st['tbs']} transform blocks on {st['frames']} frames, "
+          f"{st['up_bytes'] / 1e6:.3f} MB up and down [{smi}]")
+    if md5 != ref_md5 or not st["buckets"]:
+        raise AssertionError(f"[itx] md5 {md5} != host {ref_md5}, or no "
+                             "bucket was launched")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False")
@@ -590,6 +1127,10 @@ def main():
             refs[label] = host_decode(label, streams[label])
         launches[label, path] = decode(label, path, streams[label],
                                        refs[label], smi)
+    check_functions(dev, smi)
+    for k, n in inter_b(smi).items():
+        summary[k]["launches_inter_b"] = n
+    inter_tools(smi)
     for k in summary:
         summary[k]["launches"] = launches[KERNELS[k][3]][k]
         if summary[k]["launches"] <= 0:

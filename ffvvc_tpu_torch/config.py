@@ -14,7 +14,6 @@ from .ops import resolve_device
 
 # toggle -> ROADMAP.md item that ports it
 _UNPORTED = {
-    "device_mc": "queue 1 item 7 (device MC and inter)",
     "device_intra": "queue 1 item 8 (device intra)",
 }
 
@@ -35,9 +34,10 @@ class DecoderConfig:
     # the host: it switches native_cabac, native_parse and native_alf off.
     # "tpu", the JAX package's device half, is refused.
     backend: str = "cuda"
-    # torch device of the fused filter chain and of the per-stage device
-    # filters: "cuda" (raises when CUDA is unavailable) or "cpu" (the
-    # kernels' plain PyTorch versions; tests).
+    # torch device of the fused filter chain, the per-stage device
+    # filters, device MC and the batched inverse transform: "cuda" (raises
+    # when CUDA is unavailable) or "cpu" (the kernels' plain PyTorch
+    # versions; tests).
     device: str = "cuda"
 
     # Mesh for multi-device decode: (gop, tile) axes. (1, 1) = single chip.

@@ -10,16 +10,19 @@ kept diffable line by line against it, with the device half in PyTorch:
 
   * the mesh set-up and its drains are left out (`DecoderConfig` refuses a
     mesh);
-  * in `_decode_frame` the device itx call is dropped (the native recon's
-    own transforms run); the row-pipeline gate and the fused-chain gate
-    test `device_pipeline`, and the fused chain is this package's
+  * in `_decode_frame` the row-pipeline gate and the fused-chain gate test
+    `device_pipeline`, and the fused chain is this package's
     (`ops/fused_device.py`), run on `config.device`;
   * the per-stage device filters (`device_lmcs`, `device_deblock`,
     `device_sao`, `device_alf`) are this package's (`ops/lmcs_device.py`,
     `deblock_device.py`, `sao_device.py`, `alf_device.py`), run on
     `config.device`;
-  * the branches of the toggles the port refuses (`device_mc`,
-    `device_intra`) are removed: `DecoderConfig` raises on them.
+  * the batched inverse transform (`ops/itx.py`) and device MC
+    (`device_mc`, `ops/mc_device.py`, whole-frame and per row band) are
+    this package's, run on `config.device` under backend "cuda"; device MC
+    takes no mesh;
+  * the branches of the toggle the port refuses (`device_intra`) are
+    removed: `DecoderConfig` raises on it.
 """
 from __future__ import annotations
 
@@ -609,7 +612,12 @@ class VVCDecoder:
         self._trim_pixels(max(1, self.config.pipeline_depth) -
                           (0 if row_wait_refs else 1))
 
-        # (device itx is not ported: the native recon's transforms run)
+        if self.config.backend == "cuda":
+            # batched inverse transforms on device (one launch per TB bucket);
+            # host recon below then only adds the precomputed residuals
+            from .ops.itx import frame_device_residuals
+            frame_device_residuals(recon_jobs, tabs, sps.bit_depth,
+                                   self.config.device)
         _stage("itx")
         # inter MC pass (reference INTER task stage precedes RECON,
         # vvc_thread.c:41-51)
@@ -623,21 +631,36 @@ class VVCDecoder:
                     ip.predict_inter_ctu(rs)
             else:                     # NativeRecon (native/vvc_inter.c)
                 native_mc.extend((ip, rs, rx, ry) for rs, rx, ry in ctus)
+        dev_mc = self.config.backend == "cuda" and self.config.device_mc
         if native_mc and row_wait_refs:
             # row-granular MC: walk CTU rows in order, waiting on just the
             # reference rows this row's MVs reach (+ filter/refinement
             # margin) — the reference's schedule_inter row gating
             # (vvc_thread.c:281-296, max-y per CU from cu_get_max_y).
+            # With device_mc, each row-band runs as its own batched device
+            # MC call (row overlap and device offload compose).
             needy = self._mc_row_needs(tabs, sps, pps)
             from collections import defaultdict
             by_row = defaultdict(list)
             for item in native_mc:
                 by_row[item[3]].append(item)
+            if dev_mc:
+                from .ops.mc_device import frame_device_mc
             for ry in sorted(by_row):
                 need = needy[ry]
                 for rf in row_wait_refs:
                     rf.wait_rows(need)
                 items = by_row[ry]
+                if dev_mc:
+                    jobs_row = defaultdict(list)
+                    for _ip, rs, rx, r2 in items:
+                        jobs_row[id(_ip)].append((rs, rx, r2))
+                    ips = {id(_ip): _ip for _ip, *_ in items}
+                    frame_device_mc([(ips[k], v)
+                                     for k, v in jobs_row.items()],
+                                    sps, sps.bit_depth,
+                                    device=self.config.device)
+                    continue
                 i = 0
                 while i < len(items):
                     ip = items[i][0]
@@ -647,6 +670,15 @@ class VVCDecoder:
                     ip.predict_inter_ctus(
                         [(rs, rx, r2) for _, rs, rx, r2 in items[i:j]])
                     i = j
+            native_mc = []
+        if native_mc and dev_mc:
+            # batched device MC for simple regular blocks; the same C call
+            # host-filters the complex ones (ops/mc_device.py).
+            from .ops.mc_device import frame_device_mc
+            njobs = [(ip, ctus) for ip, ctus in inter_jobs
+                     if not hasattr(ip, "c")]
+            frame_device_mc(njobs, sps, sps.bit_depth,
+                            device=self.config.device)
             native_mc = []
         if native_mc:
             # MC CTUs are data-independent (refs are other frames; DMVR

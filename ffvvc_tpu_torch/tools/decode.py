@@ -5,15 +5,17 @@ options:
 
     python -m ffvvc_tpu_torch.tools.decode in.bit out.yuv [--md5]
         [--device cuda|cpu] [--device-pipeline] [--device-lmcs]
-        [--device-deblock] [--device-sao] [--device-alf] [--no-native-cabac]
+        [--device-deblock] [--device-sao] [--device-alf] [--device-mc]
+        [--no-native-cabac]
 
 --device-pipeline runs the fused post-recon filter chain (LMCS, deblock,
 SAO, ALF, CC-ALF) on --device.  --device-lmcs, --device-deblock,
 --device-sao and --device-alf (ALF and CC-ALF) run that one stage on
 --device, each with its own upload and download; they also take pictures
 whose slices or tiles forbid filtering across their boundaries, which the
-fused chain leaves to the host.  Without any of them the decode runs on
-the host.
+fused chain leaves to the host.  --device-mc runs the motion compensation
+of inter frames on --device (ops/mc_device.py), alone or with any of the
+others.  Without any of them the decode runs on the host.
 """
 import argparse
 import hashlib
@@ -32,6 +34,8 @@ def main(argv=None):
     for stage in ("lmcs", "deblock", "sao", "alf"):
         ap.add_argument(f"--device-{stage}", action="store_true",
                         help=f"run the {stage} stage on --device")
+    ap.add_argument("--device-mc", action="store_true",
+                    help="run inter motion compensation on --device")
     ap.add_argument("--no-native-cabac", action="store_true")
     ap.add_argument("--md5", action="store_true",
                     help="print per-frame and stream MD5 (framemd5-style)")
@@ -47,6 +51,7 @@ def main(argv=None):
                         device_deblock=args.device_deblock,
                         device_sao=args.device_sao,
                         device_alf=args.device_alf,
+                        device_mc=args.device_mc,
                         native_cabac=not args.no_native_cabac)
     t0 = time.monotonic()
     frames = VVCDecoder(cfg).decode(data)

@@ -18,6 +18,10 @@ STREAM_KW = dict(slice_type=2, nframes=2, width=96, height=64, seed=1,
                  deblock=True, sps_sao_enabled_flag=1, sps_alf_enabled_flag=1,
                  sps_ccalf_enabled_flag=1, sps_lmcs_enabled_flag=1)
 
+HIER_KW = dict(seed=0, width=96, height=96, ngops=1, deblock=True,
+               sps_temporal_mvp_enabled_flag=1, sps_bdof_enabled_flag=1,
+               sps_dmvr_enabled_flag=1)
+
 _NO_JAX_DECODE = r"""
 import hashlib, sys
 # any import of JAX or of the JAX package now raises ImportError
@@ -27,7 +31,8 @@ sys.path.insert(0, ROOT)
 import ffvvc_tpu_torch
 from ffvvc_tpu_torch import DecoderConfig, VVCDecoder
 from ffvvc_tpu_torch.ops import fused_device as fd
-from ffvvc_tpu_torch.tools.forge import forge_inter_stream
+from ffvvc_tpu_torch.ops import inter_device, itx, mc_device
+from ffvvc_tpu_torch.tools.forge import forge_hier_stream, forge_inter_stream
 assert ffvvc_tpu_torch.__file__.startswith(ROOT + "/"), ffvvc_tpu_torch.__file__
 s = forge_inter_stream(**STREAM_KW)
 def md5(frames):
@@ -38,30 +43,45 @@ port = md5(VVCDecoder(DecoderConfig(device="cpu",
                                     device_pipeline=True)).decode(s))
 assert port == host, (port, host)
 assert fd.stats["frames"] == 2, fd.stats
+# an inter stream through device MC (DMVR and BDOF armed), and the golden
+# parse through the batched inverse transform
+b = forge_hier_stream(**HIER_KW)
+host_b = md5(VVCDecoder(DecoderConfig(device="cpu")).decode(b))
+assert md5(VVCDecoder(DecoderConfig(device="cpu", device_mc=True)).decode(b)) \
+    == host_b
+assert mc_device.stats["dmvr_subblocks"] and mc_device.stats["bdof_blocks"], \
+    mc_device.stats
+assert md5(VVCDecoder(DecoderConfig(device="cpu", native_parse=False)).decode(
+    b)) == host_b
+assert itx.stats["buckets"] > 0, itx.stats
 loaded = [m for m, v in sys.modules.items() if v is not None and
           (m.split(".")[0] in ("jax", "jaxlib", "ffvvc_tpu"))]
 assert not loaded, loaded
-print("NO_JAX_OK", port)
-""".replace("ROOT", repr(ROOT)).replace("STREAM_KW", repr(STREAM_KW))
+print("NO_JAX_OK", port, host_b)
+""".replace("ROOT", repr(ROOT)).replace("STREAM_KW", repr(STREAM_KW)).replace(
+    "HIER_KW", repr(HIER_KW))
 
 
 def test_decode_without_jax():
     """Forge and decode a SAO/ALF/CC-ALF/LMCS stream through the port in a
     process where neither JAX nor ffvvc_tpu can be imported, fused chain on
-    and off; the md5 equals ffvvc_tpu's host decode of the same stream."""
+    and off, and a hierarchical inter stream through device MC and through
+    the batched inverse transform; each md5 equals ffvvc_tpu's host decode
+    of the same stream."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-c", _NO_JAX_DECODE], env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-4000:]
-    port = r.stdout.split("NO_JAX_OK")[1].split()[0]
+    port, port_b = r.stdout.split("NO_JAX_OK")[1].split()[:2]
     sys.path.insert(0, os.path.join(ROOT, "tools"))
-    from forge import forge_inter_stream
+    from forge import forge_hier_stream, forge_inter_stream
     from ffvvc_tpu.config import DecoderConfig as HostConfig
     from ffvvc_tpu.decoder import VVCDecoder as HostDecoder
-    frames = HostDecoder(HostConfig(backend="golden")).decode(
-        forge_inter_stream(**STREAM_KW))
-    assert port == hashlib.md5(
-        b"".join(f.to_yuv_bytes() for f in frames)).hexdigest()
+    for got, stream in ((port, forge_inter_stream(**STREAM_KW)),
+                        (port_b, forge_hier_stream(**HIER_KW))):
+        frames = HostDecoder(HostConfig(backend="golden")).decode(stream)
+        assert got == hashlib.md5(
+            b"".join(f.to_yuv_bytes() for f in frames)).hexdigest()
 
 
 def _imports(path):
@@ -156,10 +176,9 @@ def test_backend_tpu_refused():
     dict(device_lmcs=True), dict(device_mc=True), dict(device_intra=True),
     dict(mesh_shape=(1, 2))])
 def test_unported_toggle_raises(toggle):
-    """The per-stage filter toggles are ported and construct; the toggles
-    still to be ported raise, each naming its ROADMAP.md item."""
-    items = {"device_mc": "item 7", "device_intra": "item 8",
-             "mesh_shape": "item 11"}
+    """The per-stage filter toggles and device_mc are ported and construct;
+    the toggles still to be ported raise, each naming its ROADMAP.md item."""
+    items = {"device_intra": "item 8", "mesh_shape": "item 11"}
     (name, value), = toggle.items()
     if name not in items:
         assert getattr(DecoderConfig(device="cpu", **toggle), name) is True
@@ -172,10 +191,20 @@ def test_unported_toggle_raises(toggle):
 def test_stage_toggles_construct_together():
     cfg = DecoderConfig(device="cpu", device_sao=True, device_alf=True,
                         device_deblock=True, device_lmcs=True,
-                        device_pipeline=True)
+                        device_pipeline=True, device_mc=True)
     assert cfg.device_sao and cfg.device_alf and cfg.device_deblock and \
-        cfg.device_lmcs and cfg.device_pipeline
+        cfg.device_lmcs and cfg.device_pipeline and cfg.device_mc
     VVCDecoder(cfg)
+
+
+def test_device_mc_on_cuda_raises_without_cuda(monkeypatch):
+    """device_mc asks for the card like every other toggle: no CPU stands
+    in for it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        DecoderConfig(device="cuda", device_mc=True)
+    with pytest.raises(RuntimeError, match="cuda"):
+        DecoderConfig(device_mc=True)
 
 
 def test_decode_tool_flags(tmp_path, capsys):
@@ -191,6 +220,25 @@ def test_decode_tool_flags(tmp_path, capsys):
     decode.main([str(bit), str(out), "--device", "cpu", "--device-lmcs",
                  "--device-deblock", "--device-sao", "--device-alf"])
     assert out.read_bytes() == want
+    capsys.readouterr()
+
+
+def test_decode_tool_device_mc_flag(tmp_path, capsys):
+    """`tools.decode --device-mc` runs the device MC and writes the host
+    decode's bytes."""
+    from ffvvc_tpu_torch.ops import mc_device
+    from ffvvc_tpu_torch.tools import decode
+    from ffvvc_tpu_torch.tools.forge import forge_inter_stream
+    bit, out = tmp_path / "in.bit", tmp_path / "out.yuv"
+    s = forge_inter_stream(slice_type=0, nframes=3, width=96, height=64,
+                           seed=2, deblock=True)
+    bit.write_bytes(s)
+    want = b"".join(f.to_yuv_bytes() for f in VVCDecoder(
+        DecoderConfig(device="cpu")).decode(s))
+    mc_device.reset_stats()
+    decode.main([str(bit), str(out), "--device", "cpu", "--device-mc"])
+    assert out.read_bytes() == want
+    assert mc_device.stats["calls"] > 0
     capsys.readouterr()
 
 
