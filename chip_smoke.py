@@ -5,9 +5,11 @@
 Phases, each of which raises on a fault (the script then exits non-zero):
 
 1. Environment: torch/CUDA versions, the card, its power limit, nvcc.
-2. Build, all at once: csrc/filters.cu with nvcc (ffvvc_tpu_torch/ops/
-   _build.py) and the host half's eight C libraries with gcc
-   (ffvvc_tpu_torch/native/_build.py), each from the package's own sources.
+2. Forge the five 1080p streams below, one process each, into the
+   temp-directory cache.  Build, all at once: csrc/filters.cu with nvcc
+   (ffvvc_tpu_torch/ops/_build.py) and the host half's eight C libraries
+   with gcc (ffvvc_tpu_torch/native/_build.py), each from the package's own
+   sources.
 3. Kernels: SAO (three planes in one launch), luma ALF, chroma ALF (two
    planes in one launch) and CC-ALF (two planes in one launch) on seeded
    inputs, each held against its plain PyTorch version exactly
@@ -65,8 +67,27 @@ Phases, each of which raises on a fault (the script then exits non-zero):
    C MC's.  Then the other inter tools at 416x240 through device_mc (affine
    with PROF, SbTMVP, GPM, weighted P and bi, BCW, wraparound, mono LMCS,
    DMVR at 12 bits) and one golden-parse decode through the batched inverse
-   transform, each md5-equal to the host decode.
-7. No module of the JAX package and no JAX was loaded.
+   transform, each md5-equal to the host decode.  Also on `inter-b`:
+   device_intra, device_mc and the fused chain together (the IDR through
+   device intra), md5-equal.
+7. Intra frames (ops/intra_device.py; plain PyTorch, as the JAX package's
+   intra functions are XLA functions): a one-frame 64x64 intra decode to
+   warm the allocator; the 14 small streams of tests/test_device_intra.py
+   and a 4:2:0 one without collocated chroma through device_intra, each
+   md5-equal to its host decode with every frame on the device, their
+   buckets captured and replayed on the card and on the CPU (torch.equal:
+   both angular orientations in luma and chroma, the three MIP size ids,
+   the four CCLM layouts, 8, 10 and 12 bits, PDPC side gathers outside the
+   reference array in thrown-away lanes, a bucket with negative nscale).
+   The main path: `c-recon` through device_intra with the fused chain,
+   counts from zero just before and read just after: every frame on the
+   device, every hand kernel launched (`launches_intra` in the summary).
+   `intra-tools`, bench.py's device-leg stream with CCLM at 1080p10 (one
+   frame), through device_intra: every family.  Per 1080p frame: units, waves,
+   buckets by family, host ms by section, MB up and down, the stage's ms
+   beside the host C recon's, and for the first frame the device busy time
+   and kernel count under the profiler.
+8. No module of the JAX package and no JAX was loaded.
 
 The last two lines of stdout are a JSON summary of the kernels and the
 contract line {"ok": true, "device": {...}}.
@@ -96,6 +117,7 @@ from ffvvc_tpu_torch.ops import _build  # noqa: E402
 from ffvvc_tpu_torch.ops import alf_device, sao_device  # noqa: E402
 from ffvvc_tpu_torch.ops import fused_device as fd  # noqa: E402
 from ffvvc_tpu_torch.ops import inter_device, itx, mc_device  # noqa: E402
+from ffvvc_tpu_torch.ops import intra_device as idv  # noqa: E402
 from ffvvc_tpu_torch.ops.kernel_inputs import (  # noqa: E402
     alf_chroma_inputs, alf_luma_inputs, cc_inputs, edge_words, sao_inputs,
     sao_restore_inputs)
@@ -1037,6 +1059,19 @@ def inter_b(smi):
             and stats["bdof_blocks"]):
         raise AssertionError(f"{tag} a put class, DMVR or BDOF never ran: "
                              f"{stats}")
+    # the three toggles together: the IDR through device intra, the P and B
+    # frames through device MC, the fused chain on all three
+    idv.reset_stats()
+    mc_decode(tag + "[intra+mc+fused]", stream, ref_md5, host_mc, smi,
+              n_inter, device_pipeline=True, device_intra=True,
+              row_progress=False)
+    print(f"{tag}[intra+mc+fused] device intra on {idv.stats['frames']} "
+          f"frame ({idv.stats['units']} units, {idv.stats['queue_s']:.3f} s "
+          f"of queueing), fused chain on {fd.stats['frames']} of {n} frames")
+    if idv.stats["frames"] != 1 or fd.stats["frames"] != n:
+        raise AssertionError(f"{tag}[intra+mc+fused] device intra on "
+                             f"{idv.stats['frames']} frames, fused chain on "
+                             f"{fd.stats['frames']}")
     # where the MC stage's time goes: device_mc alone, serial (no reference
     # in flight, so one call per frame), under the profiler
     mc_device.reset_stats()
@@ -1110,6 +1145,375 @@ def inter_tools(smi):
                              "bucket was launched")
 
 
+# ---- device intra -----------------------------------------------------------
+
+_CCLM = dict(sps_cclm_enabled_flag=1)
+# the small all-intra streams: the 14 cases of tests/test_device_intra.py and
+# a 4:2:0 stream whose chroma is not vertically collocated (CCLM variant 0,
+# which none of the 14 has), each through the port's forge: name -> (forge
+# function, arguments)
+INTRA_CASES = {
+    "basic": ("forge_stream", dict(level=0, seed=0, width=128, height=96,
+                                   qp=30)),
+    "fuzz": ("forge_stream", dict(level=1, seed=3, width=128, height=96,
+                                  qp=28, bit_depth=10)),
+    "tools10": ("forge_tools_stream", dict(seed=0, width=128, height=128,
+                                           qp=30)),
+    "cclm": ("forge_tools_stream", dict(seed=2, width=128, height=96, qp=30,
+                                        **_CCLM)),
+    "cclm_coll": ("forge_tools_stream", dict(
+        seed=3, width=128, height=96, qp=30,
+        sps_chroma_vertical_collocated_flag=1, **_CCLM)),
+    "dualtree": ("forge_tools_stream", dict(seed=4, width=128, height=128,
+                                            qp=30, dual_tree=True, **_CCLM)),
+    "ts_bdpcm": ("forge_ts_stream", dict(seed=0, width=96, height=64, qp=30,
+                                         bdpcm=True)),
+    "tiled": ("forge_tiled_stream", dict(seed=0, width=96, height=96,
+                                         qp=32)),
+    "subpic": ("forge_subpic_stream", dict(seed=0, width=128, height=64,
+                                           qp=30)),
+    "wpp": ("forge_tools_stream", dict(
+        seed=5, width=256, height=192, qp=30,
+        sps_entropy_coding_sync_enabled_flag=1)),
+    "mono": ("forge_tools_stream", dict(seed=6, width=128, height=96, qp=30,
+                                        chroma=0)),
+    "12bit": ("forge_tools_stream", dict(seed=7, width=96, height=96, qp=30,
+                                         bit_depth=12)),
+    "422": ("forge_tools_stream", dict(seed=8, width=128, height=96, qp=30,
+                                       chroma=2, **_CCLM)),
+    "444": ("forge_tools_stream", dict(seed=9, width=128, height=96, qp=30,
+                                       chroma=3, **_CCLM)),
+    "cclm_noncoll": ("forge_tools_stream", dict(
+        seed=2, width=128, height=96, qp=30,
+        sps_chroma_vertical_collocated_flag=0, **_CCLM)),
+}
+INTRA_FAMILIES = ("k_simple_g", "k_angular_g", "k_mip_g", "k_cclm_p")
+
+
+class IntraLog:
+    """Records every frame_device_intra call of a decode: whether it took
+    the frame, what it added to intra_device.stats and its seconds.  With
+    `profile`, the first call runs under the profiler: the device busy time
+    and the kernels and copies of one frame's intra stage."""
+
+    def __init__(self, profile=False):
+        self.profile = profile and DEVICE == "cuda"
+
+    def __enter__(self):
+        self.calls, self.orig, self.busy = [], idv.frame_device_intra, None
+
+        def spy(*args, **kw):
+            before = dict(idv.stats)
+            t0 = time.perf_counter()
+            if self.profile and not self.calls:
+                from torch.profiler import ProfilerActivity, profile
+                profile(activities=[ProfilerActivity.CUDA]).start()
+                t0 = time.perf_counter()
+                ok = self.orig(*args, **kw)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                # stopped through the C API, which hands back the raw
+                # events: the profile object's own stop and key_averages()
+                # turn the 3 million kernels and copies a 1080p frame
+                # queues into Python objects, which took over 6 minutes on
+                # the card's machine
+                ev = [e for e in torch._C._autograd._disable_profiler()
+                      .events()
+                      if e.device_type() == torch.autograd.DeviceType.CUDA]
+                self.busy = (sum(e.duration_ns() for e in ev) / 1e6,
+                             len(ev))
+            else:
+                ok = self.orig(*args, **kw)
+                dt = time.perf_counter() - t0
+            self.calls.append((ok, dt, {k: idv.stats[k] - before[k]
+                                        for k in before
+                                        if k != "last_plan_s"}))
+            print(f"[intra] frame_device_intra call {len(self.calls) - 1}: "
+                  f"{dt:.3f} s", flush=True)
+            return ok
+        idv.frame_device_intra = spy
+        return self
+
+    def __exit__(self, *exc):
+        idv.frame_device_intra = self.orig
+
+    def report(self, tag, host_recon_ms, smi):
+        """One line per frame: sizes, host seconds by section, bytes, the
+        stage's ms beside the host C recon's."""
+        for i, (ok, dt, d) in enumerate(self.calls):
+            ms = {k[:-2]: round(d[k] * 1e3, 1) for k in (
+                "walk_s", "build_s", "cclm_s", "residual_s", "queue_s",
+                "download_s")}
+            prof = ""
+            if i == 0 and self.busy is not None:
+                prof = (f"; under the profiler: device busy "
+                        f"{self.busy[0]:.3f} ms in {self.busy[1]} kernels "
+                        "and copies")
+            print(f"{tag} frame {i}: {d['units']} units in {d['waves']} "
+                  f"waves; buckets simple {d['simple_buckets']}, angular "
+                  f"{d['angular_buckets']}, MIP {d['mip_buckets']}, CCLM "
+                  f"{d['cclm_buckets']} ({d['cclm_units']} CCLM units); ms "
+                  f"{json.dumps(ms)}; {d['up_bytes'] / 1e6:.3f} MB up, "
+                  f"{d['down_bytes'] / 1e6:.3f} MB down; device intra stage "
+                  f"{dt * 1e3:.1f} ms (host C recon {host_recon_ms:.1f} ms)"
+                  f"{prof} [{smi}]")
+
+
+class IntraBuckets:
+    """Records the inputs of the intra bucket functions during a decode:
+    CPU copies taken before each call (the functions write into the plane
+    in place), at most `per_key` buckets of each family and static
+    arguments."""
+
+    def __init__(self, per_key=2):
+        self.per_key = per_key
+
+    def __enter__(self):
+        self.buckets, self.seen = [], {}
+        self.orig = {n: getattr(idv, n) for n in INTRA_FAMILIES}
+
+        def wrap(name, fn):
+            def call(*args):
+                # the tensors but the gather plans (a tuple), which the
+                # replay builds again from the geo rows
+                static = tuple(a for a in args
+                               if not isinstance(a, (torch.Tensor, tuple)))
+                n = self.seen.get((name, static), 0)
+                if n < self.per_key:
+                    self.seen[name, static] = n + 1
+                    self.buckets.append((name, [
+                        a.cpu().clone() for a in args
+                        if isinstance(a, torch.Tensor)], static))
+                return fn(*args)
+            return call
+        for name, fn in self.orig.items():
+            setattr(idv, name, wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(idv, name, fn)
+
+
+def host_serial(stream):
+    """The host decode, serial and timed per stage: (md5, frames, ms of the
+    host C recon per frame)."""
+    from ffvvc_tpu_torch import DecoderConfig, VVCDecoder
+    dec = VVCDecoder(DecoderConfig(device=DEVICE, pipeline_frames=False,
+                                   profile=True))
+    md5, n = yuv_md5(dec.decode(stream))
+    return md5, n, dec.stage_times["recon"] / n * 1e3
+
+
+def _side_index_range(geo, w, h, is_h):
+    """Least and greatest index of the angular PDPC side gather before its
+    clamp."""
+    wp_max = h if is_h else w
+    sscale = 256 + geo[:, idv.G_INV, None].long() * \
+        (torch.arange(wp_max) + 1)
+    idx = idv.PAD + (sscale >> 9)
+    return int(idx.min()), int(idx.max()) + (w if is_h else h) - 1
+
+
+def replay_intra(dev, buckets):
+    """Every captured bucket once on the CPU and once on `dev`, each on
+    its own copy of the inputs: torch.equal.  Then a bucket whose units
+    without PDPC carry nscale -3 (no decode has one: the planner gives them
+    0), the same way.  Returns what the buckets covered."""
+    seen = {"angular": set(), "mip": set(), "cclm": set(), "bd": set(),
+            "outside": 0}
+    negative = None
+    def run(name, arrays, static, on):
+        t = [a.to(on, copy=True) for a in arrays]
+        if name != "k_cclm_p":     # the gather plans of the geo rows
+            t.append(idv._edge_idx(t[2], static[2]))
+        return getattr(idv, name)(*t, *static)
+
+    for name, arrays, static in buckets:
+        want = run(name, arrays, static, "cpu")
+        got = run(name, arrays, static, dev)
+        if got.device.type != dev.type or not torch.equal(want, got.cpu()):
+            raise AssertionError(
+                f"{name}{static} differs between cpu and {dev}: "
+                f"{int((want != got.cpu()).sum())} of {want.numel()} values")
+        if name == "k_angular_g":
+            w, h, _W, _bd, is_h, is_luma = static
+            seen["angular"].add((is_h, is_luma))
+            lo, hi = _side_index_range(arrays[2], w, h, is_h)
+            seen["outside"] += lo < 0 or hi >= idv.NREF
+            if negative is None and (arrays[2][:, idv.G_PDPC] == 0).any():
+                negative = (arrays, static)
+        elif name == "k_mip_g":
+            seen["mip"].add(static[4])
+        elif name == "k_cclm_p":
+            seen["cclm"].add(static[5])
+        seen["bd"].add(static[4] if name == "k_cclm_p" else static[3])
+    arrays, static = negative
+    geo = arrays[2].clone()
+    geo[geo[:, idv.G_PDPC] == 0, idv.G_NSCALE] = -3
+    arrays = arrays[:2] + [geo]
+    want = run("k_angular_g", arrays, static, "cpu")
+    got = run("k_angular_g", arrays, static, dev)
+    if not torch.equal(want, got.cpu()):
+        raise AssertionError("an angular bucket with negative nscale "
+                             f"differs between cpu and {dev}")
+    return seen
+
+
+def intra_small(dev, smi):
+    """A one-frame 64x64 intra stream to warm the allocator, then the small
+    intra streams through device_intra, each md5-equal to its host decode,
+    with the buckets captured and replayed on the CPU and on the card."""
+    from ffvvc_tpu_torch import DecoderConfig, VVCDecoder
+    cfg = DecoderConfig(device=DEVICE, device_intra=True)
+    warm = forge_cached("forge_inter_stream", slice_type=2, nframes=1,
+                        width=64, height=64, seed=0)
+    t0 = time.monotonic()
+    md5, _ = yuv_md5(VVCDecoder(cfg).decode(warm))
+    print(f"[intra/warm-up] 64x64 intra frame through device_intra in "
+          f"{time.monotonic() - t0:.3f} s")
+    if md5 != yuv_md5(VVCDecoder(DecoderConfig(device=DEVICE)).decode(
+            warm))[0]:
+        raise AssertionError("[intra/warm-up] md5 differs from the host")
+    with IntraBuckets() as cap:
+        for name, (fn, kw) in INTRA_CASES.items():
+            stream = forge_cached(fn, **kw)
+            ref_md5, n = yuv_md5(VVCDecoder(DecoderConfig(
+                device=DEVICE)).decode(stream))
+            idv.reset_stats()
+            t0 = time.monotonic()
+            md5, _ = yuv_md5(VVCDecoder(cfg).decode(stream))
+            st = idv.stats
+            print(f"[intra/{name}] {n} frames of {kw['width']}x"
+                  f"{kw['height']} through device_intra in "
+                  f"{time.monotonic() - t0:.2f} s: md5 {md5}; "
+                  f"{st['frames']} frames on the device, {st['units']} "
+                  f"units, buckets simple {st['simple_buckets']}, angular "
+                  f"{st['angular_buckets']}, MIP {st['mip_buckets']}, CCLM "
+                  f"{st['cclm_buckets']}")
+            if md5 != ref_md5 or st["frames"] != n or st["declined"]:
+                raise AssertionError(f"[intra/{name}] md5 {md5} != host "
+                                     f"{ref_md5}, or {st['frames']} of {n} "
+                                     "frames on the device")
+    seen = replay_intra(dev, cap.buckets)
+    print(f"functions: intra buckets equal on {dev} and cpu: "
+          f"{len(cap.buckets)} buckets of the small streams (angular "
+          f"(is_h, is_luma) {sorted(seen['angular'])}, MIP size ids "
+          f"{sorted(seen['mip'])}, CCLM variants {sorted(seen['cclm'])}, "
+          f"bit depths {sorted(seen['bd'])}; {seen['outside']} angular "
+          "buckets whose PDPC side gather runs outside the reference array "
+          "in thrown-away lanes) and one angular bucket with negative "
+          "nscale on its units without PDPC")
+    if (len(seen["angular"]) != 4 or seen["mip"] != {0, 1, 2}
+            or seen["cclm"] != {0, 1, 2, 3} or not seen["outside"]):
+        raise AssertionError(f"the intra buckets missed a variant: {seen}")
+
+
+def intra_main(smi, stream, ref_md5):
+    """The main path: `c-recon` through device_intra with the fused chain,
+    counts from zero just before the decode and read just after.  Serial
+    (frame pipeline off), so that the profiler runs on the thread that
+    started CUDA: frame 0 under it, frame 1 not.  (inter-b runs device
+    intra on the pixel thread.)  Returns the hand kernels' launch
+    counts."""
+    from ffvvc_tpu_torch import DecoderConfig, VVCDecoder
+    tag = "[c-recon/intra+fused]"
+    _, _, host_recon = host_serial(stream)
+    cfg = DecoderConfig(device=DEVICE, device_intra=True,
+                        device_pipeline=True, pipeline_frames=False)
+    idv.reset_stats()
+    fd.reset_stats()
+    for fn, *_ in KERNELS.values():
+        fn.launches = fn.edge_launches = 0
+    with IntraLog(profile=True) as log:
+        t0 = time.monotonic()
+        frames = VVCDecoder(cfg).decode(stream)
+        dt = time.monotonic() - t0
+    launches = {k: {"all": fn.launches, "edges": fn.edge_launches,
+                    "plain": fn.launches - fn.edge_launches}[which]
+                for k, (fn, which, _, _) in KERNELS.items()}
+    md5, n = yuv_md5(frames)
+    st = idv.stats
+    print(f"{tag} {n} frames in {dt:.3f} s (frame 0 under the profiler), "
+          f"md5 {md5}; intra on the device on {st['frames']} frames, fused "
+          f"chain on {fd.stats['frames']}; hand-kernel launches "
+          f"{json.dumps(launches)} [{smi}]")
+    log.report(tag, host_recon, smi)
+    if md5 != ref_md5 or n != NFRAMES:
+        raise AssertionError(f"{tag} md5 {md5} ({n} frames) != host "
+                             f"{ref_md5}")
+    if st["frames"] != NFRAMES or st["declined"] or not (
+            st["simple_buckets"] and st["angular_buckets"]):
+        raise AssertionError(f"{tag} device intra: {st}")
+    # the fused chain launches every kernel but those with edge words
+    if fd.stats["frames"] != NFRAMES or (DEVICE == "cuda" and not all(
+            v for k, v in launches.items() if KERNELS[k][1] != "edges")):
+        raise AssertionError(f"{tag} fused chain on {fd.stats['frames']} "
+                             f"frames, launches {launches}")
+    return launches
+
+
+def intra_tools_kw():
+    """The forge arguments of `intra-tools`."""
+    return dict(seed=SEED, width=W, height=H, qp=QP, bit_depth=BD,
+                nframes=1, sps_sao_enabled_flag=1, sps_alf_enabled_flag=1,
+                sps_ccalf_enabled_flag=1, sps_lmcs_enabled_flag=1, **_CCLM)
+
+
+def intra_tools(smi):
+    """bench.py's device-leg stream (forge_tools_stream with the SPS flags
+    of SAO, ALF, CC-ALF and LMCS) with CCLM on, at 1080p10, cut to one
+    frame (a frame's device intra stage takes about a minute on the card's
+    machine), through device_intra alone, serial, under the profiler:
+    every family, md5-equal to the host decode."""
+    from ffvvc_tpu_torch import DecoderConfig, VVCDecoder
+    tag = "[intra-tools]"
+    stream = forge_cached("forge_tools_stream", **intra_tools_kw())
+    ref_md5, n, host_recon = host_serial(stream)
+    idv.reset_stats()
+    with IntraLog(profile=True) as log:
+        t0 = time.monotonic()
+        md5, _ = yuv_md5(VVCDecoder(DecoderConfig(
+            device=DEVICE, device_intra=True,
+            pipeline_frames=False)).decode(stream))
+        dt = time.monotonic() - t0
+    st = idv.stats
+    print(f"{tag} {n} frames through device_intra in {dt:.3f} s (frame 0 "
+          f"under the profiler), md5 {md5} (host {ref_md5}) [{smi}]")
+    log.report(tag, host_recon, smi)
+    if md5 != ref_md5 or st["frames"] != n or st["declined"] or not all(
+            st[k] for k in ("simple_buckets", "angular_buckets",
+                            "mip_buckets", "cclm_buckets")):
+        raise AssertionError(f"{tag} md5 {md5} != host {ref_md5}, or a "
+                             f"family never ran: {st}")
+
+
+def _forge_job(name):
+    """Forge one of the 1080p streams into the temp-directory cache (runs
+    in a worker process of prefetch_streams)."""
+    if name in STREAMS:
+        forge_stream(**STREAMS[name])
+    elif name == "inter-b":
+        forge_cached(forge_hier_alf, width=W, height=H, **INTER_B)
+    else:
+        forge_cached("forge_tools_stream", **intra_tools_kw())
+
+
+def prefetch_streams():
+    """The five 1080p streams, forged at once in worker processes (the
+    forge is single-threaded Python, about a minute a stream on the card's
+    machine); the phases then find them in the cache."""
+    import multiprocessing
+    names = list(STREAMS) + ["inter-b", "intra-tools"]
+    t0 = time.monotonic()
+    with concurrent.futures.ProcessPoolExecutor(
+            len(names), mp_context=multiprocessing.get_context("spawn")) \
+            as pool:
+        list(pool.map(_forge_job, names))
+    print(f"forged {len(names)} streams in {time.monotonic() - t0:.1f} s, "
+          "one process each")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False")
@@ -1118,6 +1522,7 @@ def main():
     environment()
     smi = card()
     print(f"nvidia-smi: {smi}")
+    prefetch_streams()
     build()
     summary = check_kernels(dev, smi)
     launches, streams, refs = {}, {}, {}
@@ -1131,6 +1536,10 @@ def main():
     for k, n in inter_b(smi).items():
         summary[k]["launches_inter_b"] = n
     inter_tools(smi)
+    intra_small(dev, smi)
+    for k, n in intra_main(smi, streams["c-recon"], refs["c-recon"]).items():
+        summary[k]["launches_intra"] = n
+    intra_tools(smi)
     for k in summary:
         summary[k]["launches"] = launches[KERNELS[k][3]][k]
         if summary[k]["launches"] <= 0:

@@ -17,12 +17,10 @@ kept diffable line by line against it, with the device half in PyTorch:
     `device_sao`, `device_alf`) are this package's (`ops/lmcs_device.py`,
     `deblock_device.py`, `sao_device.py`, `alf_device.py`), run on
     `config.device`;
-  * the batched inverse transform (`ops/itx.py`) and device MC
-    (`device_mc`, `ops/mc_device.py`, whole-frame and per row band) are
-    this package's, run on `config.device` under backend "cuda"; device MC
-    takes no mesh;
-  * the branches of the toggle the port refuses (`device_intra`) are
-    removed: `DecoderConfig` raises on it.
+  * the batched inverse transform (`ops/itx.py`), device MC (`device_mc`,
+    `ops/mc_device.py`, whole-frame and per row band) and device intra
+    (`device_intra`, `ops/intra_device.py`) are this package's, run on
+    `config.device` under backend "cuda"; none of them takes a mesh.
 """
 from __future__ import annotations
 
@@ -727,7 +725,7 @@ class VVCDecoder:
             # intra streams keep the (stage-threaded) whole-frame passes
             if (cfg.row_progress and cfg.pipeline_frames
                     and self._seen_inter and
-                    not (cfg.device_deblock or
+                    not (cfg.device_intra or cfg.device_deblock or
                          cfg.device_sao or cfg.device_alf or
                          cfg.device_lmcs or cfg.device_pipeline)):
                 if self._pixel_stages_rows(frame, sps, pps, tabs, fb,
@@ -752,7 +750,16 @@ class VVCDecoder:
             # walk) so the add runs as a batched device pass
             defer_res = self._deferred_residuals(recon_jobs, fb) \
                 if (fused and is_inter_frame) else None
-            if defer_res is None:
+            did_dev_intra = False
+            if (defer_res is None and self.config.backend == "cuda" and
+                    self.config.device_intra and not is_inter_frame):
+                # wavefront-batched device intra (ops/intra_device.py);
+                # returns False (untouched state) when ineligible
+                from .ops.intra_device import frame_device_intra
+                did_dev_intra = frame_device_intra(recon_jobs, sps, pps,
+                                                   tabs, fb,
+                                                   device=cfg.device)
+            if defer_res is None and not did_dev_intra:
                 for rec, ctus in recon_jobs:
                     nr = rec.native_recon
                     if nr is not None:

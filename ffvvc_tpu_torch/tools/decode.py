@@ -6,7 +6,7 @@ options:
     python -m ffvvc_tpu_torch.tools.decode in.bit out.yuv [--md5]
         [--device cuda|cpu] [--device-pipeline] [--device-lmcs]
         [--device-deblock] [--device-sao] [--device-alf] [--device-mc]
-        [--no-native-cabac]
+        [--device-intra] [--no-native-cabac]
 
 --device-pipeline runs the fused post-recon filter chain (LMCS, deblock,
 SAO, ALF, CC-ALF) on --device.  --device-lmcs, --device-deblock,
@@ -14,8 +14,10 @@ SAO, ALF, CC-ALF) on --device.  --device-lmcs, --device-deblock,
 --device, each with its own upload and download; they also take pictures
 whose slices or tiles forbid filtering across their boundaries, which the
 fused chain leaves to the host.  --device-mc runs the motion compensation
-of inter frames on --device (ops/mc_device.py), alone or with any of the
-others.  Without any of them the decode runs on the host.
+of inter frames on --device (ops/mc_device.py), --device-intra the intra
+prediction and residual add of all-intra frames (ops/intra_device.py), each
+alone or with any of the others.  Without any of them the decode runs on
+the host.
 """
 import argparse
 import hashlib
@@ -36,6 +38,9 @@ def main(argv=None):
                         help=f"run the {stage} stage on --device")
     ap.add_argument("--device-mc", action="store_true",
                     help="run inter motion compensation on --device")
+    ap.add_argument("--device-intra", action="store_true",
+                    help="run the intra recon of all-intra frames on "
+                         "--device")
     ap.add_argument("--no-native-cabac", action="store_true")
     ap.add_argument("--md5", action="store_true",
                     help="print per-frame and stream MD5 (framemd5-style)")
@@ -52,6 +57,7 @@ def main(argv=None):
                         device_sao=args.device_sao,
                         device_alf=args.device_alf,
                         device_mc=args.device_mc,
+                        device_intra=args.device_intra,
                         native_cabac=not args.no_native_cabac)
     t0 = time.monotonic()
     frames = VVCDecoder(cfg).decode(data)

@@ -26,6 +26,7 @@ import forge as jforge  # noqa: E402
 
 from ffvvc_tpu.config import DecoderConfig as JaxConfig  # noqa: E402
 from ffvvc_tpu.decoder import VVCDecoder as JaxDecoder  # noqa: E402
+from ffvvc_tpu.native import parse as jparse  # noqa: E402
 from ffvvc_tpu_torch import DecoderConfig, VVCDecoder  # noqa: E402
 from ffvvc_tpu_torch.native import _build as native_build  # noqa: E402
 from ffvvc_tpu_torch.tools import forge as pforge  # noqa: E402
@@ -63,13 +64,14 @@ DIFFER = {
     "native/sao.py": ("ffvvc_tpu/native/sao.py", 16),
     "native/alf.py": ("ffvvc_tpu/native/alf.py", 16),
     "cabac/native.py": ("ffvvc_tpu/cabac/native.py", 22),
-    # the reference's fields plus `device`, backend "cuda", the refusals,
-    # and what device_sao and device_alf do in the port (64 lines)
-    "config.py": ("ffvvc_tpu/config.py", 70),
+    # the reference's fields plus `device`, backend "cuda", the mesh
+    # refusal, and what device_sao, device_alf and device_intra do in the
+    # port (61 lines)
+    "config.py": ("ffvvc_tpu/config.py", 65),
     # no mesh; the port's _decode_frame (device dispatch in PyTorch).  With
-    # the device_mc branches and the itx call back, 241 lines (255 without
-    # them; what is left is the mesh and device_intra)
-    "decoder.py": ("ffvvc_tpu/decoder.py", 245),
+    # the device_mc and device_intra branches and the itx call back, 234
+    # lines (255 without them; what is left is the mesh)
+    "decoder.py": ("ffvvc_tpu/decoder.py", 234),
     # no path set-up; its own copy of pipeline._iter_units
     "tools/forge.py": ("tools/forge.py", 24),
 }
@@ -111,7 +113,7 @@ def test_every_host_file_is_accounted_for():
            "ops/alf_device.py", "ops/sao_device.py", "ops/deblock_device.py",
            "ops/fused_device.py", "ops/kernel_inputs.py",
            "ops/lmcs_device.py", "ops/mc_device.py", "ops/inter_device.py",
-           "ops/itx.py", "csrc/filters.cu",
+           "ops/itx.py", "ops/intra_device.py", "csrc/filters.cu",
            "native/_build.py", "tools/__init__.py", "tools/alf_ab.py",
            "tools/decode.py", "tools/sass.py"}
     found = set()
@@ -193,7 +195,9 @@ def test_port_loads_its_own_libraries():
         mapped = {line.split()[-1] for line in f if "libvvc_" in line}
     ours = {m for m in mapped if m.startswith(native_build.BUILD_DIR)}
     assert ours, mapped
-    theirs = os.path.join(ROOT, "ffvvc_tpu", "native")
+    # the JAX package's libraries lie beside the module that loaded them,
+    # wherever `import ffvvc_tpu` found it (not always under ROOT)
+    theirs = os.path.dirname(jparse.__file__)
     for m in mapped - ours:
         assert m.startswith(theirs + os.sep), m
 

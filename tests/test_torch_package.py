@@ -22,6 +22,10 @@ HIER_KW = dict(seed=0, width=96, height=96, ngops=1, deblock=True,
                sps_temporal_mvp_enabled_flag=1, sps_bdof_enabled_flag=1,
                sps_dmvr_enabled_flag=1)
 
+# all-intra with MIP, ISP, MRL and CCLM: every family of device intra
+INTRA_KW = dict(seed=2, width=64, height=64, nframes=1,
+                sps_cclm_enabled_flag=1)
+
 _NO_JAX_DECODE = r"""
 import hashlib, sys
 # any import of JAX or of the JAX package now raises ImportError
@@ -31,8 +35,9 @@ sys.path.insert(0, ROOT)
 import ffvvc_tpu_torch
 from ffvvc_tpu_torch import DecoderConfig, VVCDecoder
 from ffvvc_tpu_torch.ops import fused_device as fd
-from ffvvc_tpu_torch.ops import inter_device, itx, mc_device
-from ffvvc_tpu_torch.tools.forge import forge_hier_stream, forge_inter_stream
+from ffvvc_tpu_torch.ops import inter_device, intra_device, itx, mc_device
+from ffvvc_tpu_torch.tools.forge import (forge_hier_stream, forge_inter_stream,
+                                         forge_tools_stream)
 assert ffvvc_tpu_torch.__file__.startswith(ROOT + "/"), ffvvc_tpu_torch.__file__
 s = forge_inter_stream(**STREAM_KW)
 def md5(frames):
@@ -54,31 +59,39 @@ assert mc_device.stats["dmvr_subblocks"] and mc_device.stats["bdof_blocks"], \
 assert md5(VVCDecoder(DecoderConfig(device="cpu", native_parse=False)).decode(
     b)) == host_b
 assert itx.stats["buckets"] > 0, itx.stats
+# an all-intra stream through device intra
+i = forge_tools_stream(**INTRA_KW)
+port_i = md5(VVCDecoder(DecoderConfig(device="cpu", device_intra=True)
+                        ).decode(i))
+assert port_i == md5(VVCDecoder(DecoderConfig(device="cpu")).decode(i))
+assert intra_device.stats["frames"] == 1 and \
+    intra_device.stats["cclm_buckets"], intra_device.stats
 loaded = [m for m, v in sys.modules.items() if v is not None and
           (m.split(".")[0] in ("jax", "jaxlib", "ffvvc_tpu"))]
 assert not loaded, loaded
-print("NO_JAX_OK", port, host_b)
+print("NO_JAX_OK", port, host_b, port_i)
 """.replace("ROOT", repr(ROOT)).replace("STREAM_KW", repr(STREAM_KW)).replace(
-    "HIER_KW", repr(HIER_KW))
+    "HIER_KW", repr(HIER_KW)).replace("INTRA_KW", repr(INTRA_KW))
 
 
 def test_decode_without_jax():
     """Forge and decode a SAO/ALF/CC-ALF/LMCS stream through the port in a
     process where neither JAX nor ffvvc_tpu can be imported, fused chain on
-    and off, and a hierarchical inter stream through device MC and through
-    the batched inverse transform; each md5 equals ffvvc_tpu's host decode
-    of the same stream."""
+    and off, a hierarchical inter stream through device MC and through
+    the batched inverse transform, and an all-intra stream through device
+    intra; each md5 equals ffvvc_tpu's host decode of the same stream."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-c", _NO_JAX_DECODE], env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-4000:]
-    port, port_b = r.stdout.split("NO_JAX_OK")[1].split()[:2]
+    port, port_b, port_i = r.stdout.split("NO_JAX_OK")[1].split()[:3]
     sys.path.insert(0, os.path.join(ROOT, "tools"))
-    from forge import forge_hier_stream, forge_inter_stream
+    from forge import forge_hier_stream, forge_inter_stream, forge_tools_stream
     from ffvvc_tpu.config import DecoderConfig as HostConfig
     from ffvvc_tpu.decoder import VVCDecoder as HostDecoder
     for got, stream in ((port, forge_inter_stream(**STREAM_KW)),
-                        (port_b, forge_hier_stream(**HIER_KW))):
+                        (port_b, forge_hier_stream(**HIER_KW)),
+                        (port_i, forge_tools_stream(**INTRA_KW))):
         frames = HostDecoder(HostConfig(backend="golden")).decode(stream)
         assert got == hashlib.md5(
             b"".join(f.to_yuv_bytes() for f in frames)).hexdigest()
@@ -176,9 +189,10 @@ def test_backend_tpu_refused():
     dict(device_lmcs=True), dict(device_mc=True), dict(device_intra=True),
     dict(mesh_shape=(1, 2))])
 def test_unported_toggle_raises(toggle):
-    """The per-stage filter toggles and device_mc are ported and construct;
-    the toggles still to be ported raise, each naming its ROADMAP.md item."""
-    items = {"device_intra": "item 8", "mesh_shape": "item 11"}
+    """The per-stage filter toggles, device_mc and device_intra are ported
+    and construct; a mesh, still to be ported, raises naming its ROADMAP.md
+    item."""
+    items = {"mesh_shape": "item 11"}
     (name, value), = toggle.items()
     if name not in items:
         assert getattr(DecoderConfig(device="cpu", **toggle), name) is True
@@ -191,9 +205,11 @@ def test_unported_toggle_raises(toggle):
 def test_stage_toggles_construct_together():
     cfg = DecoderConfig(device="cpu", device_sao=True, device_alf=True,
                         device_deblock=True, device_lmcs=True,
-                        device_pipeline=True, device_mc=True)
+                        device_pipeline=True, device_mc=True,
+                        device_intra=True)
     assert cfg.device_sao and cfg.device_alf and cfg.device_deblock and \
-        cfg.device_lmcs and cfg.device_pipeline and cfg.device_mc
+        cfg.device_lmcs and cfg.device_pipeline and cfg.device_mc and \
+        cfg.device_intra
     VVCDecoder(cfg)
 
 
@@ -205,6 +221,17 @@ def test_device_mc_on_cuda_raises_without_cuda(monkeypatch):
         DecoderConfig(device="cuda", device_mc=True)
     with pytest.raises(RuntimeError, match="cuda"):
         DecoderConfig(device_mc=True)
+
+
+def test_device_intra_on_cuda_raises_without_cuda(monkeypatch):
+    """device_intra asks for the card too, in the config and in the frame
+    function itself."""
+    from ffvvc_tpu_torch.ops import intra_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        DecoderConfig(device_intra=True)
+    with pytest.raises(RuntimeError, match="cuda"):
+        intra_device.frame_device_intra([], None, None, None, None)
 
 
 def test_decode_tool_flags(tmp_path, capsys):
@@ -239,6 +266,24 @@ def test_decode_tool_device_mc_flag(tmp_path, capsys):
     decode.main([str(bit), str(out), "--device", "cpu", "--device-mc"])
     assert out.read_bytes() == want
     assert mc_device.stats["calls"] > 0
+    capsys.readouterr()
+
+
+def test_decode_tool_device_intra_flag(tmp_path, capsys):
+    """`tools.decode --device-intra` reconstructs the intra frames on the
+    device and writes the host decode's bytes."""
+    from ffvvc_tpu_torch.ops import intra_device
+    from ffvvc_tpu_torch.tools import decode
+    from ffvvc_tpu_torch.tools.forge import forge_tools_stream
+    bit, out = tmp_path / "in.bit", tmp_path / "out.yuv"
+    s = forge_tools_stream(**INTRA_KW)
+    bit.write_bytes(s)
+    want = b"".join(f.to_yuv_bytes() for f in VVCDecoder(
+        DecoderConfig(device="cpu")).decode(s))
+    intra_device.reset_stats()
+    decode.main([str(bit), str(out), "--device", "cpu", "--device-intra"])
+    assert out.read_bytes() == want
+    assert intra_device.stats["frames"] == 1
     capsys.readouterr()
 
 
