@@ -85,12 +85,27 @@ Phases, each of which raises on a fault (the script then exits non-zero):
    `intra-tools`, bench.py's device-leg stream with CCLM at 1080p10 (one
    frame), through device_intra: every family.  Per 1080p frame: units, waves,
    buckets by family, host ms by section, MB up and down, the stage's ms
-   beside the host C recon's, and for the first frame the device busy time
-   and kernel count under the profiler.
-8. No module of the JAX package and no JAX was loaded.
+   beside the host C recon's, and for the first frame of `c-recon` the
+   device busy time and kernel count under the profiler.
+8. The mesh (ffvvc_tpu_torch/parallel/, `mesh_shape`), every slab on this
+   card: first one slab-origin launch of each kernel and variant at the
+   1080p shapes, cut where the mesh cuts a (1, 2) picture, torch.equal to
+   the same rows of a whole-picture launch; then `c-recon` at (2, 2) (one
+   drain over a gop of 2), `across-off` at (1, 2) (SAO's restore regions,
+   ALF and CC-ALF with edge words, on slabs) and `inter-b` at (1, 2) with
+   device_mc (puts split over the tile axis, a selective drain at the
+   reference barrier), each md5-equal to its host decode, the launch
+   counts set to 0 just before each and read just after: every kernel
+   launches (`launches_mesh` in the summary).
+9. GOP workers (ffvvc_tpu_torch/pipeline.py): a 3-frame multi-IDR 1080p10
+   stream (forge_scaling_stream) through decode_parallel with 3 workers
+   and device_sao on the card: the pool is spawned, and the YUV md5
+   equals the sequential host decode; both walls printed.
+10. No module of the JAX package and no JAX was loaded.
 
-The last two lines of stdout are a JSON summary of the kernels and the
-contract line {"ok": true, "device": {...}}.
+Each phase prints its seconds.  The last two lines of stdout are a JSON
+summary of the kernels and the contract line
+{"ok": true, "device": {...}}.
 """
 import concurrent.futures
 import hashlib
@@ -121,6 +136,9 @@ from ffvvc_tpu_torch.ops import intra_device as idv  # noqa: E402
 from ffvvc_tpu_torch.ops.kernel_inputs import (  # noqa: E402
     alf_chroma_inputs, alf_luma_inputs, cc_inputs, edge_words, sao_inputs,
     sao_restore_inputs)
+from ffvvc_tpu_torch.ops.sao_device import Slab  # noqa: E402
+from ffvvc_tpu_torch.parallel import filters as PF  # noqa: E402
+from ffvvc_tpu_torch.pipeline import _decode_segment  # noqa: E402
 
 W, H, CTB, BD, NFRAMES, QP = 1920, 1080, 32, 10, 2, 30
 SEED = 0
@@ -546,15 +564,12 @@ def decode(label, path, stream, ref_md5, smi):
     VVCDecoder(cfg).decode(stream)                 # warm-up
     # the path: counts from zero, one decode, counts read after it
     fd.reset_stats()
-    for fn, *_ in KERNELS.values():
-        fn.launches = fn.edge_launches = 0     # SAO has no edge variant
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.monotonic()
     frames = VVCDecoder(cfg).decode(stream)
     dt = time.monotonic() - t0
-    launches = {k: {"all": fn.launches, "edges": fn.edge_launches,
-                    "plain": fn.launches - fn.edge_launches}[which]
-                for k, (fn, which, _, _) in KERNELS.items()}
+    launches = launch_counts()
     stats = dict(fd.stats)
     md5, n = yuv_md5(frames)
     print(f"{tag} port decode: {n} frames in {dt:.3f} s = "
@@ -913,10 +928,10 @@ class McLog:
     def __enter__(self):
         self.calls, self.orig = [], mc_device.frame_device_mc
 
-        def spy(jobs, sps, bd, device="cuda"):
+        def spy(jobs, sps, bd, device="cuda", mesh=None):
             before = dict(mc_device.stats, put_class=None)
             t0 = time.perf_counter()
-            self.orig(jobs, sps, bd, device=device)
+            self.orig(jobs, sps, bd, device=device, mesh=mesh)
             dt = time.perf_counter() - t0
             delta = {k: v - before[k] for k, v in mc_device.stats.items()
                      if k != "put_class"}
@@ -1040,8 +1055,7 @@ def inter_b(smi):
                              f"{stats['calls']} calls for {n_inter} frames")
     # device_mc with the fused chain, one call per frame, the hand kernels
     # on the same frames: counts from zero just before, read just after
-    for fn, *_ in KERNELS.values():
-        fn.launches = fn.edge_launches = 0
+    reset_launches()
     stats = mc_decode(tag + "[whole+fused]", stream, ref_md5, host_mc, smi,
                       n_inter, device_pipeline=True, row_progress=False)
     launches = {k: fn.launches - fn.edge_launches
@@ -1423,15 +1437,12 @@ def intra_main(smi, stream, ref_md5):
                         device_pipeline=True, pipeline_frames=False)
     idv.reset_stats()
     fd.reset_stats()
-    for fn, *_ in KERNELS.values():
-        fn.launches = fn.edge_launches = 0
+    reset_launches()
     with IntraLog(profile=True) as log:
         t0 = time.monotonic()
         frames = VVCDecoder(cfg).decode(stream)
         dt = time.monotonic() - t0
-    launches = {k: {"all": fn.launches, "edges": fn.edge_launches,
-                    "plain": fn.launches - fn.edge_launches}[which]
-                for k, (fn, which, _, _) in KERNELS.items()}
+    launches = launch_counts()
     md5, n = yuv_md5(frames)
     st = idv.stats
     print(f"{tag} {n} frames in {dt:.3f} s (frame 0 under the profiler), "
@@ -1464,28 +1475,290 @@ def intra_tools(smi):
     """bench.py's device-leg stream (forge_tools_stream with the SPS flags
     of SAO, ALF, CC-ALF and LMCS) with CCLM on, at 1080p10, cut to one
     frame (a frame's device intra stage takes about a minute on the card's
-    machine), through device_intra alone, serial, under the profiler:
-    every family, md5-equal to the host decode."""
+    machine), through device_intra alone, serial: every family, md5-equal
+    to the host decode.  (Only `c-recon`'s first frame runs under the
+    profiler: reading the events of a 1080p device-intra frame takes about
+    90 s.)"""
     from ffvvc_tpu_torch import DecoderConfig, VVCDecoder
     tag = "[intra-tools]"
     stream = forge_cached("forge_tools_stream", **intra_tools_kw())
     ref_md5, n, host_recon = host_serial(stream)
     idv.reset_stats()
-    with IntraLog(profile=True) as log:
+    with IntraLog() as log:
         t0 = time.monotonic()
         md5, _ = yuv_md5(VVCDecoder(DecoderConfig(
             device=DEVICE, device_intra=True,
             pipeline_frames=False)).decode(stream))
         dt = time.monotonic() - t0
     st = idv.stats
-    print(f"{tag} {n} frames through device_intra in {dt:.3f} s (frame 0 "
-          f"under the profiler), md5 {md5} (host {ref_md5}) [{smi}]")
+    print(f"{tag} {n} frames through device_intra in {dt:.3f} s, md5 {md5} "
+          f"(host {ref_md5}) [{smi}]")
     log.report(tag, host_recon, smi)
     if md5 != ref_md5 or st["frames"] != n or st["declined"] or not all(
             st[k] for k in ("simple_buckets", "angular_buckets",
                             "mip_buckets", "cclm_buckets")):
         raise AssertionError(f"{tag} md5 {md5} != host {ref_md5}, or a "
                              f"family never ran: {st}")
+
+
+# ---- the mesh and the GOP workers -------------------------------------------
+
+def launch_counts():
+    """{kernel of KERNELS: its wrapper's launches of its variant}."""
+    return {k: {"all": fn.launches, "edges": fn.edge_launches,
+                "plain": fn.launches - fn.edge_launches}[which]
+            for k, (fn, which, _, _) in KERNELS.items()}
+
+
+def reset_launches():
+    for fn, *_ in KERNELS.values():
+        fn.launches = fn.edge_launches = 0     # SAO has no edge variant
+
+
+def check_slab_launches(dev):
+    """One slab-origin launch of each kernel and variant at the 1080p10
+    shapes, against the same rows of a whole-picture launch (torch.equal):
+    the second slab of the mesh's (1, 2) cut (luma from row 540, chroma
+    from 270: not on the CTB grid), with the halo parallel/filters.py
+    gives it."""
+    rng = np.random.default_rng(SEED)
+    pix_max, half = (1 << BD) - 1, 1 << (BD - 1)
+    hc, wc, cc = H // 2, W // 2, CTB // 2
+    cuts = PF.frame_cuts(H, hc, 2, 1, 3)
+    r0, c0 = cuts[0].hs, cuts[1].hs
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def slab(row0, pic_h, halo):
+        return Slab(row0, pic_h - row0, pic_h, halo)
+
+    def same(name, whole, part, row0):
+        for w_, p in zip(_as_list(whole), _as_list(part)):
+            if not torch.equal(w_[row0:], p):
+                raise AssertionError(f"slab launch of {name} differs from "
+                                     "the whole picture's rows")
+        print(f"kernel {name}: the slab from row {row0} equals the whole "
+              "picture's rows")
+    shapes = ((H, W, CTB, CTB, BD), (hc, wc, cc, cc, BD), (hc, wc, cc, cc, BD))
+    sizes = [(CTB, CTB), (cc, cc), (cc, cc)]
+    for name, ins in (
+            ("sao", [(x, sao_device.pack_params(p, *sh[:4])) for (x, p), sh
+                     in zip([sao_inputs(rng, *sh) for sh in shapes],
+                            shapes)]),
+            ("sao/restore", [sao_restore_inputs(rng, *sh) for sh in shapes])):
+        planes, prms = [t(x) for x, _ in ins], [t(p) for _, p in ins]
+        rows = (r0, c0, c0)
+        whole = sao_device.sao_apply(planes, prms, sizes, BD - 5, pix_max)
+        part = sao_device.sao_apply(
+            [x[r - PF.SAO_HALO:] for x, r in zip(planes, rows)], prms, sizes,
+            BD - 5, pix_max, [slab(r, x.shape[0], PF.SAO_HALO)
+                              for x, r in zip(planes, rows)])
+        for w_, p, r in zip(whole, part, rows):
+            same(name, w_, p, r)
+    src, ci, ti, ctb_set, cf, cl = (t(a) for a in
+                                    alf_luma_inputs(rng, H, W, CTB, BD))
+    edges = t(edge_words(rng, *ctb_set.shape))
+    for name, e in (("alf_luma", None), ("alf_luma/edges", edges)):
+        rest = (ctb_set, cf, cl, CTB, pix_max, e)
+        same(name, alf_device.alf_filter_luma(src, ci, ti, *rest),
+             alf_device.alf_filter_luma(
+                 src[r0 - PF.ALF_LUMA_HALO:], ci[r0 >> 2:], ti[r0 >> 2:],
+                 *rest, slab(r0, H, PF.ALF_LUMA_HALO)), r0)
+    ins = [[t(a) for a in alf_chroma_inputs(rng, hc, wc, cc, cc, BD)]
+           for _ in range(2)]
+    edges = t(edge_words(rng, *ins[0][1].shape))
+    for name, e in (("alf_chroma", None), ("alf_chroma/edges", edges)):
+        rest = tuple([x[k] for x in ins] for k in (1, 2, 3)) + \
+            (cc, cc, pix_max, e)
+        same(name, alf_device.alf_filter_chroma([x[0] for x in ins], *rest),
+             alf_device.alf_filter_chroma(
+                 [x[0][c0 - PF.ALF_CHROMA_HALO:] for x in ins], *rest,
+                 slab(c0, hc, PF.ALF_CHROMA_HALO)), c0)
+    dsts, luma, sets, tabs = cc_inputs(rng, hc, wc, CTB, 1, 1, BD)
+    dsts, sets, tabs = ([t(a) for a in x] for x in (dsts, sets, tabs))
+    luma = t(luma)
+    for name, e in (("cc_alf", None), ("cc_alf/edges", edges)):
+        rest = (sets, tabs, cc, cc, 1, 1, half, pix_max, e)
+        same(name, alf_device.cc_filter(dsts, luma, *rest),
+             alf_device.cc_filter(
+                 [d[c0:] for d in dsts], luma[r0 - PF.CC_LUMA_HALO:], *rest,
+                 slab(c0, hc, 0), slab(r0, H, PF.CC_LUMA_HALO)), c0)
+
+
+class MeshLog:
+    """Records the drains of the mesh's queue: (frames queued, frames
+    asked for, or None for all)."""
+
+    def __enter__(self):
+        self.drains, self.orig = [], PF.MeshFilterQueue.drain
+
+        def spy(queue, needed=None):
+            if queue.q:
+                self.drains.append((len(queue.q), None if needed is None
+                                    else sum(e["fb"] in needed
+                                             for e in queue.q)))
+            return self.orig(queue, needed)
+        PF.MeshFilterQueue.drain = spy
+        return self
+
+    def __exit__(self, *exc):
+        PF.MeshFilterQueue.drain = self.orig
+
+
+def mesh_decode(label, stream, ref_md5, mesh_shape, smi, **toggles):
+    """One warm-up decode on a mesh of `mesh_shape` entries of DEVICE, as
+    decode() warms up the per-stage path, then the timed decode: counts
+    from zero just before it and read just after, checked against the host
+    decode's md5.  Returns (launches, drains, sharded puts, frames,
+    seconds) of the timed decode."""
+    from ffvvc_tpu_torch import DecoderConfig, VVCDecoder
+    tag = f"[{label}/mesh {mesh_shape[0]}x{mesh_shape[1]}]"
+    cfg = DecoderConfig(device=DEVICE, mesh_shape=mesh_shape, **toggles)
+    VVCDecoder(cfg).decode(stream)                 # warm-up
+    reset_launches()
+    before = mc_device.sharded_puts
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    with MeshLog() as log:
+        t0 = time.monotonic()
+        md5, n = yuv_md5(VVCDecoder(cfg).decode(stream))
+        dt = time.monotonic() - t0
+    launches = launch_counts()
+    sharded = mc_device.sharded_puts - before
+    print(f"{tag} {json.dumps(toggles)} {n} frames in {dt:.3f} s = "
+          f"{dt / n * 1e3:.1f} ms per frame (warm), md5 {md5}; drains "
+          f"(queued, landed of them or all): {log.drains}; hand-kernel "
+          f"launches {json.dumps(launches)} [{smi}]")
+    if md5 != ref_md5:
+        raise AssertionError(f"{tag} md5 {md5} != host {ref_md5}")
+    return launches, log.drains, sharded, n, dt
+
+
+def mesh_phase(smi, streams, refs):
+    """The mesh on this card: slab launches against whole-picture ones,
+    then three decodes.  Returns the hand kernels' launch counts on the
+    mesh path: of `c-recon` for the kernels the summary counts on the main
+    path, of `across-off` for those it counts on `across-off`."""
+    if DEVICE == "cuda":
+        check_slab_launches(torch.device(DEVICE, 0))
+    # c-recon on a (2, 2) mesh: both frames in one drain over the gop axis
+    main, drains, _, _, _ = mesh_decode(
+        "c-recon", streams["c-recon"], refs["c-recon"], (2, 2), smi)
+    if (2, None) not in drains:
+        raise AssertionError(f"[c-recon/mesh] no drain over a gop of 2: "
+                             f"{drains}")
+    # across-off on (1, 2): restore regions and edge words on slabs
+    stages, _, _, _, _ = mesh_decode(
+        "across-off", streams["across-off"], refs["across-off"], (1, 2), smi)
+    # inter-b on (1, 2) with device_mc: puts over the tile axis, drains of
+    # the referenced frames only at the reference barrier
+    stream = forge_cached(forge_hier_alf, width=W, height=H, **INTER_B)
+    ref_md5, _ = yuv_md5(host_frames(stream))
+    launches, drains, sharded, _, _ = mesh_decode(
+        "inter-b", stream, ref_md5, (1, 2), smi, device_mc=True)
+    print(f"[inter-b/mesh 1x2] sharded puts {sharded}; selective drains "
+          f"{[d for d in drains if d[1] is not None]}")
+    if not sharded or not any(d[1] for d in drains if d[1] is not None):
+        raise AssertionError(f"[inter-b/mesh] sharded puts {sharded}, "
+                             f"drains {drains}")
+    if DEVICE == "cuda" and not all(
+            v for k, v in launches.items() if KERNELS[k][1] != "edges"):
+        raise AssertionError(f"[inter-b/mesh] launches {launches}")
+    out = {k: (main if KERNELS[k][3] == MAIN else stages)[k]
+           for k in KERNELS}
+    if DEVICE == "cuda" and not all(out.values()):
+        raise AssertionError(f"a kernel never launched on the mesh: {out}")
+    return out
+
+
+def host_frames(stream):
+    """The host decode (every device toggle off) of DEVICE's config."""
+    from ffvvc_tpu_torch import DecoderConfig, VVCDecoder
+    return VVCDecoder(DecoderConfig(device=DEVICE)).decode(stream)
+
+
+def scaling_kw():
+    """The forge arguments of the GOP workers' stream: multi-IDR, one
+    segment a frame, SAO on."""
+    return dict(seed=SEED, width=W, height=H, qp=QP, bit_depth=BD, nframes=3,
+                sps_sao_enabled_flag=1)
+
+
+def _segment_launches_path(idx):
+    return os.path.join(tempfile.gettempdir(),
+                        f"chip_smoke_seg_{os.getpid()}_{idx}.json")
+
+
+def _counted_segment(args):
+    """pipeline._decode_segment in a worker, with the SAO kernel's
+    launches of that segment written beside its result (the counts of a
+    worker stay in its process): the proof that the device ran there."""
+    sao_device.sao_apply.launches = 0
+    out = _decode_segment(args)
+    with open(_segment_launches_path(args[0]), "w") as fh:
+        json.dump({"pid": os.getpid(), "segment": args[0],
+                   "sao_launches": sao_device.sao_apply.launches}, fh)
+    return out
+
+
+def _segment_launches():
+    """The records _counted_segment left, read and removed."""
+    import glob
+    out = []
+    for p in glob.glob(os.path.join(tempfile.gettempdir(),
+                                    "chip_smoke_seg_*.json")):
+        with open(p) as fh:
+            out.append(json.load(fh))
+        os.unlink(p)
+    return sorted(out, key=lambda r: r["segment"])
+
+
+def gop_workers(smi):
+    """decode_parallel with 3 workers and device_sao on DEVICE: the pool
+    must be spawned on the card, every segment must launch the SAO kernel
+    in its worker, and the YUV must equal the sequential host decode."""
+    from ffvvc_tpu_torch import DecoderConfig, pipeline
+    tag = "[gop-workers]"
+    stream = forge_cached("forge_scaling_stream", **scaling_kw())
+    segments = pipeline.segment_stream(stream)
+    t0 = time.monotonic()
+    want = [f.to_yuv_bytes() for f in host_frames(stream)]
+    seq = time.monotonic() - t0
+    cfg = DecoderConfig(device=DEVICE, device_sao=True)
+    method = pipeline._start_method(cfg)
+    _segment_launches()
+    # the workers run _counted_segment, which calls the original
+    orig = pipeline._decode_segment
+    pipeline._decode_segment = _counted_segment
+    try:
+        t0 = time.monotonic()
+        got = pipeline.decode_parallel(stream, workers=3, config=cfg)
+        par = time.monotonic() - t0
+        pools = list(pipeline._POOLS)
+    finally:
+        pipeline._decode_segment = orig
+        for pool in pipeline._POOLS.values():
+            pool.terminate()
+            pool.join()
+        pipeline._POOLS.clear()
+    runs = _segment_launches()
+    md5 = hashlib.md5(b"".join(got)).hexdigest()
+    ref = hashlib.md5(b"".join(want)).hexdigest()
+    print(f"{tag} {len(segments)} segments, {len(got)} frames of {W}x{H}: "
+          f"decode_parallel(workers=3, device_sao) {par:.3f} s through a "
+          f"{method!r} pool {pools}, md5 {md5}; sequential host decode "
+          f"{seq:.3f} s, md5 {ref}; SAO kernel launches in the workers "
+          f"{json.dumps(runs)} [{smi}]")
+    if md5 != ref or len(segments) != 3 or pools != [(3, method)] or (
+            DEVICE == "cuda" and method != "spawn"):
+        raise AssertionError(f"{tag} md5 {md5} != {ref}, {len(segments)} "
+                             f"segments, pools {pools}")
+    if [r["segment"] for r in runs] != [0, 1, 2] or (DEVICE == "cuda" and (
+            not all(r["sao_launches"] for r in runs)
+            or os.getpid() in {r["pid"] for r in runs})):
+        raise AssertionError(f"{tag} the SAO kernel did not launch in "
+                             f"every worker: {runs}")
 
 
 def _forge_job(name):
@@ -1495,16 +1768,18 @@ def _forge_job(name):
         forge_stream(**STREAMS[name])
     elif name == "inter-b":
         forge_cached(forge_hier_alf, width=W, height=H, **INTER_B)
+    elif name == "gop-workers":
+        forge_cached("forge_scaling_stream", **scaling_kw())
     else:
         forge_cached("forge_tools_stream", **intra_tools_kw())
 
 
 def prefetch_streams():
-    """The five 1080p streams, forged at once in worker processes (the
+    """The six 1080p streams, forged at once in worker processes (the
     forge is single-threaded Python, about a minute a stream on the card's
     machine); the phases then find them in the cache."""
     import multiprocessing
-    names = list(STREAMS) + ["inter-b", "intra-tools"]
+    names = list(STREAMS) + ["inter-b", "intra-tools", "gop-workers"]
     t0 = time.monotonic()
     with concurrent.futures.ProcessPoolExecutor(
             len(names), mp_context=multiprocessing.get_context("spawn")) \
@@ -1514,32 +1789,56 @@ def prefetch_streams():
           "one process each")
 
 
+class Phases:
+    """Runs the phases of main(), printing each one's seconds."""
+
+    def __init__(self):
+        self.seconds = {}
+
+    def __call__(self, name, fn, *args):
+        t0 = time.monotonic()
+        out = fn(*args)
+        self.seconds[name] = round(time.monotonic() - t0, 1)
+        print(f"phase {name}: {self.seconds[name]} s", flush=True)
+        return out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False")
+    t_start = time.monotonic()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     environment()
     smi = card()
     print(f"nvidia-smi: {smi}")
-    prefetch_streams()
-    build()
-    summary = check_kernels(dev, smi)
-    launches, streams, refs = {}, {}, {}
-    for label, path in DECODES:
-        if label not in streams:
-            streams[label] = forge_stream(**STREAMS[label])
-            refs[label] = host_decode(label, streams[label])
-        launches[label, path] = decode(label, path, streams[label],
-                                       refs[label], smi)
-    check_functions(dev, smi)
-    for k, n in inter_b(smi).items():
+    phase = Phases()
+    phase("forge", prefetch_streams)
+    phase("build", build)
+    summary = phase("kernels", check_kernels, dev, smi)
+
+    def decodes():
+        launches, streams, refs = {}, {}, {}
+        for label, path in DECODES:
+            if label not in streams:
+                streams[label] = forge_stream(**STREAMS[label])
+                refs[label] = host_decode(label, streams[label])
+            launches[label, path] = decode(label, path, streams[label],
+                                           refs[label], smi)
+        return launches, streams, refs
+    launches, streams, refs = phase("decodes", decodes)
+    phase("functions", check_functions, dev, smi)
+    for k, n in phase("inter-b", inter_b, smi).items():
         summary[k]["launches_inter_b"] = n
-    inter_tools(smi)
-    intra_small(dev, smi)
-    for k, n in intra_main(smi, streams["c-recon"], refs["c-recon"]).items():
+    phase("inter-tools", inter_tools, smi)
+    phase("intra-small", intra_small, dev, smi)
+    for k, n in phase("intra-main", intra_main, smi, streams["c-recon"],
+                      refs["c-recon"]).items():
         summary[k]["launches_intra"] = n
-    intra_tools(smi)
+    for k, n in phase("mesh", mesh_phase, smi, streams, refs).items():
+        summary[k]["launches_mesh"] = n
+    phase("gop-workers", gop_workers, smi)
+    phase("intra-tools", intra_tools, smi)
     for k in summary:
         summary[k]["launches"] = launches[KERNELS[k][3]][k]
         if summary[k]["launches"] <= 0:
@@ -1550,6 +1849,8 @@ def main():
     if foreign:
         raise AssertionError(f"the run loaded {foreign}")
     print("no module of ffvvc_tpu, jax or jaxlib was loaded")
+    print(f"phase seconds: {json.dumps(phase.seconds)}; total "
+          f"{time.monotonic() - t_start:.1f} s")
     print(f"card: {smi}")
     print(json.dumps({"kernels": list(summary.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,8 @@
 
 The fields of `ffvvc_tpu/config.py`'s DecoderConfig (reference analogue:
 AVOptions on AVCodecContext, thread_count and the LOW_DELAY flag,
-libavcodec/vvc/vvcdec.c:932-954) plus the torch device.  A mesh, which the
-port does not carry yet, raises instead of being ignored, naming its
-ROADMAP.md item.
+libavcodec/vvc/vvcdec.c:932-954) plus the torch device and the devices of
+the mesh.
 """
 from __future__ import annotations
 
@@ -145,8 +144,4 @@ class DecoderConfig:
                              "golden)")
         if self.backend == "golden":
             self.native_cabac = self.native_parse = self.native_alf = False
-        if tuple(self.mesh_shape) != (1, 1):
-            raise NotImplementedError(
-                "mesh_shape != (1, 1) is not ported yet: ROADMAP.md queue 1 "
-                "item 11 (the mesh)")
         resolve_device(self.device)

@@ -25,6 +25,21 @@
 // sample at most twice and so takes it straight from device memory, both
 // chroma planes in one launch.
 //
+// Every launcher also filters a slab: a band of picture rows, as the mesh
+// (parallel/filters.py) cuts a picture.  A plane is then given by the
+// picture row of its first output row (row0), the number of output rows
+// (H), the picture's height (pic_h) and the picture rows [rlo, rhi] that
+// its source buffer holds, the slab's halo included; the source pointer
+// points at picture row row0 inside that buffer.  Rows are clamped to
+// [rlo, rhi] where they are clamped to the picture otherwise, and
+// everything that depends on the row (the CTB, the picture's bottom
+// border, the virtual boundary) is computed from the picture row, so a
+// slab's rows come out as a whole-picture launch computes them wherever
+// the halo covers what they read.  Tiles stay on the picture's grid of
+// 16-row bands (a tile's rows lie in one CTB row), the first and last
+// band of a slab only in part.  row0 = 0, H = pic_h, rlo = 0,
+// rhi = pic_h - 1 is the whole-picture launch.
+//
 // chip_smoke.py computes each kernel's bound and PERF.md has the times.
 // The least time of SAO and CC-ALF is that of their bytes (2 in, 2 out per
 // sample), of luma and chroma ALF that of their integer operations (a tap
@@ -56,23 +71,25 @@ __host__ __device__ __forceinline__ int cdiv(int a, int b) {
   return (a + b - 1) / b;
 }
 
-// Stage rows [y0 - HY, y0 + kTileH + HY) x columns [x0 - kPadX,
+// Stage picture rows [y0 - HY, y0 + kTileH + HY) x columns [x0 - kPadX,
 // x0 + kTileW + kPadX) of a 16-bit plane into `tile` (int32, kPitch words a
-// row), coordinates clamped to the picture: the samples
-// jnp.pad(mode="edge") supplies.  A work item is four neighbouring samples:
+// row), coordinates clamped to the picture (rows to [rlo, rhi], the rows
+// the slab's buffer holds): the samples jnp.pad(mode="edge") supplies.
+// src points at picture row row0.  A work item is four neighbouring samples:
 // one 8-byte load where all four lie inside the picture (x0 and the
 // picture's width are multiples of 4, so the address is aligned), clamped
 // 2-byte loads at the left and right edge; one 16-byte shared store.
 template <int HY>
 __device__ __forceinline__ void stage_tile(const short* __restrict__ src,
-                                           int H, int W, int x0, int y0,
-                                           int* tile) {
+                                           int row0, int rlo, int rhi, int W,
+                                           int x0, int y0, int* tile) {
   const int tid = threadIdx.y * kThreadsX + threadIdx.x;
   constexpr int groups = kPitch / 4;
   constexpr int n = (kTileH + 2 * HY) * groups;
   for (int i = tid; i < n; i += kThreadsX * kTileH) {
     const int r = i / groups, g = i - r * groups;
-    const short* row = src + (int64_t)clampi(y0 - HY + r, 0, H - 1) * W;
+    const short* row =
+        src + (int64_t)(clampi(y0 - HY + r, rlo, rhi) - row0) * W;
     const int gx = x0 - kPadX + 4 * g;
     int4 v;
     if (gx >= 0 && gx + 3 < W) {
@@ -146,13 +163,15 @@ constexpr int kSaoRows = 11;
 constexpr int kMaxCtbCols = 4;   // kTileW / 16: the narrowest CTB is 16
 
 struct SaoPlane {
-  const short* src;
-  short* dst;
+  const short* src;   // picture row row0
+  short* dst;         // H rows from picture row row0
   const int* prm;
   int H, W, ch, cw, log2_cs_v, log2_cs_h;
+  int row0, pic_h, rlo, rhi;
+  // the first tile's picture row (row0 down to a multiple of kTileH),
   // tiles in all and across, and floor(2^32 / tiles_x) + 1: the launcher
   // fills them in so that no thread divides
-  int tiles, tiles_x;
+  int ty0, tiles, tiles_x;
   unsigned inv_tiles_x;
 };
 
@@ -177,8 +196,8 @@ sao_kernel(const SaoArgs a) {
   }
   // b / tiles_x by the reciprocal: exact while b * tiles_x < 2^32
   const int by = (int)__umulhi((unsigned)b, P.inv_tiles_x);
-  const int x0 = (b - by * P.tiles_x) * kTileW, y0 = by * kTileH;
-  stage_tile<1>(P.src, P.H, P.W, x0, y0, tile);
+  const int x0 = (b - by * P.tiles_x) * kTileW, y0 = P.ty0 + by * kTileH;
+  stage_tile<1>(P.src, P.row0, P.rlo, P.rhi, P.W, x0, y0, tile);
   const int tid = threadIdx.y * kThreadsX + threadIdx.x;
   const int cx0 = x0 >> P.log2_cs_h, cy = y0 >> P.log2_cs_v;
   if (tid < kMaxCtbCols * kSaoRows) {
@@ -188,7 +207,7 @@ sao_kernel(const SaoArgs a) {
   }
   __syncthreads();
   const int x = x0 + kLane * threadIdx.x, y = y0 + threadIdx.y;
-  if (x >= P.W || y >= P.H) return;
+  if (x >= P.W || y < P.row0 || y >= P.row0 + P.H) return;
   const int* prm = s_prm[(x >> P.log2_cs_h) - cx0];
   // the thread's samples are mid[kPadX + k]
   const int* mid = tile + (threadIdx.y + 1) * kPitch + kLane * threadIdx.x;
@@ -227,7 +246,7 @@ sao_kernel(const SaoArgs a) {
     const int y_loc = y & ((1 << P.log2_cs_v) - 1);
     // the CTB's size inside the picture
     const int w = min(1 << P.log2_cs_h, P.W - (x - x_loc));
-    const int h = min(1 << P.log2_cs_v, P.H - (y - y_loc));
+    const int h = min(1 << P.log2_cs_v, P.pic_h - (y - y_loc));
     const bool first_row = y_loc == 0, last_row = y_loc == h - 1;
     if (x_loc == 0 || x_loc + kLane == w || first_row || last_row) {
       auto in = [](int v, unsigned r) {
@@ -242,7 +261,7 @@ sao_kernel(const SaoArgs a) {
       }
     }
   }
-  store4(P.dst + (int64_t)y * P.W + x, out);
+  store4(P.dst + (int64_t)(y - P.row0) * P.W + x, out);
 }
 
 // ---------------------------------------------------------------------------
@@ -302,8 +321,8 @@ constexpr unsigned long long kPerm2 = 0xBA9456781230ull;
 constexpr unsigned long long kPerm3 = 0x62015B734A89ull;
 
 struct AlfPlane {
-  const short* src;
-  short* out;
+  const short* src;   // picture row row0
+  short* out;         // H rows from picture row row0
   const int* set;   // int32 [ch, cw] filter set of each CTB
   const int* cf;    // luma int32 [sets, 25, 12]; chroma int32 [sets, 12]
   const int* cl;
@@ -311,9 +330,12 @@ struct AlfPlane {
 
 struct AlfArgs {
   AlfPlane p[2];
-  const int* ci;    // luma: int32 [H / 4, W / 4] class of each 4x4 block
-  const int* ti;    // luma: transpose index of each 4x4 block
+  // luma: int32 class and transpose index of each 4x4 block of the output
+  // rows, [(row0 + H - 1) / 4 - row0 / 4 + 1, W / 4]
+  const int* ci;
+  const int* ti;
   int H, W, cw, log2_cs_v, log2_cs_h, vb_pos, pix_max;
+  int row0, pic_h, rlo, rhi, ty0;
 };
 
 // one slot: taps wa[. + DA] and wb[. + DB] around the thread's samples
@@ -352,8 +374,8 @@ alf_kernel(const AlfArgs a, const int* __restrict__ edges) {
                   : kChromaCtbCols * 2 * kAlfSlots];
   __shared__ int s_edge[EDGES ? kChromaCtbCols : 1];
   const AlfPlane P = blockIdx.z ? a.p[1] : a.p[0];
-  const int x0 = blockIdx.x * kTileW, y0 = blockIdx.y * kTileH;
-  stage_tile<HY>(P.src, a.H, a.W, x0, y0, tile);
+  const int x0 = blockIdx.x * kTileW, y0 = a.ty0 + blockIdx.y * kTileH;
+  stage_tile<HY>(P.src, a.row0, a.rlo, a.rhi, a.W, x0, y0, tile);
   // the tile's rows lie in one CTB row: a CTB is at least 16 high
   const int cx0 = x0 >> a.log2_cs_h, cy = y0 >> a.log2_cs_v;
   const int tid = threadIdx.y * kThreadsX + threadIdx.x;
@@ -362,8 +384,9 @@ alf_kernel(const AlfArgs a, const int* __restrict__ edges) {
     const int b = tid >> 2, s0 = 3 * (tid & 3);
     const int bx = (x0 >> 2) + (b & (kBlkCols - 1));
     const int by = (y0 >> 2) + b / kBlkCols;
-    if (bx < (a.W >> 2) && by < (a.H >> 2)) {
-      const int blk = by * (a.W >> 2) + bx;
+    if (bx < (a.W >> 2) && by >= (a.row0 >> 2) &&
+        by <= ((a.row0 + a.H - 1) >> 2)) {
+      const int blk = (by - (a.row0 >> 2)) * (a.W >> 2) + bx;
       const int t = a.ti[blk];
       const unsigned long long perm =
           t == 0 ? kPerm0 : t == 1 ? kPerm1 : t == 2 ? kPerm2 : kPerm3;
@@ -396,7 +419,7 @@ alf_kernel(const AlfArgs a, const int* __restrict__ edges) {
   }
   __syncthreads();
   const int x = x0 + kLane * threadIdx.x, y = y0 + threadIdx.y;
-  if (x >= a.W || y >= a.H) return;
+  if (x >= a.W || y < a.row0 || y >= a.row0 + a.H) return;
 
   // coefficients and clips of the thread's four samples
   int cf[kAlfSlots], cl[kAlfSlots];
@@ -431,7 +454,7 @@ alf_kernel(const AlfArgs a, const int* __restrict__ edges) {
     const int x_loc = x & ((1 << a.log2_cs_h) - 1);
     const int y_loc = y & ((1 << a.log2_cs_v) - 1);
     const int w = min(1 << a.log2_cs_h, a.W - (x - x_loc));
-    const int h = min(1 << a.log2_cs_v, a.H - (y - y_loc));
+    const int h = min(1 << a.log2_cs_v, a.pic_h - (y - y_loc));
     if (e & kEdgeTop) reach_u = min(reach, y_loc);
     if (e & kEdgeBottom) reach_d = min(reach, h - 1 - y_loc);
     left = (e & kEdgeLeft) && x_loc == 0;
@@ -491,7 +514,7 @@ alf_kernel(const AlfArgs a, const int* __restrict__ edges) {
     const int r = reach == 0 ? (acc[k] + (1 << 9)) >> 10 : (acc[k] + 64) >> 7;
     out[k] = clampi(cur[4 + k] + r, 0, a.pix_max);
   }
-  store4(P.out + (int64_t)y * a.W + x, out);
+  store4(P.out + (int64_t)(y - a.row0) * a.W + x, out);
 }
 
 // ---------------------------------------------------------------------------
@@ -533,13 +556,16 @@ alf_kernel(const AlfArgs a, const int* __restrict__ edges) {
 constexpr int kCcTaps = 7;
 
 struct CcArgs {
-  const short* luma;       // [H, W] pre-ALF luma
-  const short* dst[2];     // [Hc, Wc] chroma planes
+  const short* luma;       // pre-ALF luma, at picture row lrow0
+  const short* dst[2];     // [Hc, Wc] chroma rows from picture row row0
   short* out[2];
   const int* set[2];       // int32 [ch, cw] coefficient set of each CTB
   const int* cf[2];        // int32 [sets, 7]
   const int* edges;        // EDGES: int32 [ch, cw] edge word of each CTB
+  // H: the picture's luma rows; Hc: chroma output rows; the luma buffer
+  // holds the picture's luma rows [lrlo, lrhi]
   int n, H, W, Hc, Wc, cw, log2_cs_v, log2_cs_h, half, pix_max;
+  int row0, ty0, lrow0, lrlo, lrhi;
 };
 
 // w[4 + i] = row[lx + i] for the 4 << HS luma columns under a thread's four
@@ -567,7 +593,8 @@ __device__ __forceinline__ void cc_load_row(const short* __restrict__ row,
 template <int HS, int VS, bool EDGES>
 __global__ void __launch_bounds__(kThreadsX * kTileH)
 cc_kernel(const CcArgs a) {
-  const int x0 = blockIdx.x * kTileW, y0 = blockIdx.y * kTileH;   // chroma
+  const int x0 = blockIdx.x * kTileW;                    // chroma
+  const int y0 = a.ty0 + blockIdx.y * kTileH;
   __shared__ int s_cf[2][kMaxCtbCols][kCcTaps + 1];
   __shared__ int s_edge[kMaxCtbCols];
   // the tile's rows lie in one CTB row: a chroma CTB is at least 16 high
@@ -592,7 +619,7 @@ cc_kernel(const CcArgs a) {
   }
   __syncthreads();
   const int x = x0 + kLane * threadIdx.x, y = y0 + threadIdx.y;
-  if (x >= a.Wc || y >= a.Hc) return;
+  if (x >= a.Wc || y < a.row0 || y >= a.row0 + a.Hc) return;
   const int j = (x >> a.log2_cs_h) - cx0;
   const int y_loc = y & ((1 << a.log2_cs_v) - 1);
   const int pos = y_loc << VS;             // row within the luma CTB
@@ -623,7 +650,7 @@ cc_kernel(const CcArgs a) {
   {
     const int lx = x << HS, ly = y << VS;
     auto row = [&](int r) {
-      return a.luma + (int64_t)clampi(r, 0, a.H - 1) * a.W;
+      return a.luma + (int64_t)(clampi(r, a.lrlo, a.lrhi) - a.lrow0) * a.W;
     };
     cc_load_row<HS, false>(row(ly - up), lx, a.W, w0);
     cc_load_row<HS, true>(row(ly), lx, a.W, w1);
@@ -646,7 +673,7 @@ cc_kernel(const CcArgs a) {
     t[k][5] = w2[c + 1] - cur;
     t[k][6] = w3[c] - cur;
   }
-  const int64_t at = (int64_t)y * a.Wc + x;
+  const int64_t at = (int64_t)(y - a.row0) * a.Wc + x;
 #pragma unroll
   for (int p = 0; p < 2; ++p) {
     if (p >= a.n) break;
@@ -672,7 +699,7 @@ cc_kernel(const CcArgs a) {
 
 template <int HS, int VS>
 int launch_cc(const CcArgs& a, cudaStream_t stream) {
-  const dim3 grid(cdiv(a.Wc, kTileW), cdiv(a.Hc, kTileH));
+  const dim3 grid(cdiv(a.Wc, kTileW), cdiv(a.row0 + a.Hc - a.ty0, kTileH));
   const dim3 block(kThreadsX, kTileH);
   if (a.edges)
     cc_kernel<HS, VS, true><<<grid, block, 0, stream>>>(a);
@@ -685,10 +712,25 @@ int launch_cc(const CcArgs& a, cudaStream_t stream) {
 
 extern "C" {
 
-// ptrs: [3n] (src, dst, prm [11, ch, cw]) of each plane; dims: [6n] (H, W, ch, cw,
-// log2_cs_v, log2_cs_h) of each plane; both host arrays.
-int ffvvc_sao(int n, const void* const* ptrs, const int* dims, int shift,
-              int pix_max, void* stream) {
+// The rows of a plane, picture coordinates (see the note at the top):
+// rows[0..3] = row0, H (output rows), pic_h, and the buffer's first
+// picture row rlo; the buffer's last, rhi, follows from rows[4], the number
+// of rows the buffer holds.  Returns false for rows that do not fit.
+static bool slab_rows(const int* rows, int* row0, int* H, int* pic_h,
+                      int* rlo, int* rhi) {
+  *row0 = rows[0];
+  *H = rows[1];
+  *pic_h = rows[2];
+  *rlo = max(rows[3], 0);
+  *rhi = min(rows[3] + rows[4], *pic_h) - 1;
+  return *H > 0 && *row0 >= *rlo && *row0 + *H - 1 <= *rhi;
+}
+
+// ptrs: [3n] (src at picture row row0, dst, prm [11, ch, cw]) of each
+// plane; dims: [5n] (W, ch, cw, log2_cs_v, log2_cs_h) and rows: [5n] (see
+// slab_rows) of each plane; all host arrays.
+int ffvvc_sao(int n, const void* const* ptrs, const int* dims,
+              const int* rows, int shift, int pix_max, void* stream) {
   SaoArgs a;
   a.n = n;
   a.shift = shift;
@@ -699,15 +741,17 @@ int ffvvc_sao(int n, const void* const* ptrs, const int* dims, int shift,
     p.src = (const short*)ptrs[3 * z];
     p.dst = (short*)ptrs[3 * z + 1];
     p.prm = (const int*)ptrs[3 * z + 2];
-    p.H = dims[6 * z];
-    p.W = dims[6 * z + 1];
-    p.ch = dims[6 * z + 2];
-    p.cw = dims[6 * z + 3];
-    p.log2_cs_v = dims[6 * z + 4];
-    p.log2_cs_h = dims[6 * z + 5];
+    p.W = dims[5 * z];
+    p.ch = dims[5 * z + 1];
+    p.cw = dims[5 * z + 2];
+    p.log2_cs_v = dims[5 * z + 3];
+    p.log2_cs_h = dims[5 * z + 4];
+    if (!slab_rows(rows + 5 * z, &p.row0, &p.H, &p.pic_h, &p.rlo, &p.rhi))
+      return (int)cudaErrorInvalidValue;
+    p.ty0 = p.row0 & ~(kTileH - 1);
     p.tiles_x = cdiv(p.W, kTileW);
-    p.tiles = p.tiles_x * cdiv(p.H, kTileH);
-    if (p.W <= 0 || p.H <= 0 || (int64_t)p.tiles * p.tiles_x >= (1ll << 32))
+    p.tiles = p.tiles_x * cdiv(p.row0 + p.H - p.ty0, kTileH);
+    if (p.W <= 0 || (int64_t)p.tiles * p.tiles_x >= (1ll << 32))
       return (int)cudaErrorInvalidValue;
     p.inv_tiles_x = (unsigned)((1ull << 32) / (unsigned)p.tiles_x) + 1u;
     blocks += p.tiles;
@@ -717,10 +761,17 @@ int ffvvc_sao(int n, const void* const* ptrs, const int* dims, int shift,
   return (int)cudaGetLastError();
 }
 
-// edges: the per-CTB edge words, or null for a picture without clamped CTBs
-int ffvvc_alf_luma(const void* src, void* out, int H, int W, const void* ci,
-                   const void* ti, const void* ctb_set, int cw,
-                   const void* cf, const void* cl, const void* edges,
+static bool alf_rows(AlfArgs& a, const int* rows) {
+  if (!slab_rows(rows, &a.row0, &a.H, &a.pic_h, &a.rlo, &a.rhi)) return false;
+  a.ty0 = a.row0 & ~(kTileH - 1);
+  return true;
+}
+
+// src at picture row row0; rows: 5 ints (see slab_rows); edges: the
+// per-CTB edge words, or null for a picture without clamped CTBs
+int ffvvc_alf_luma(const void* src, void* out, const int* rows, int W,
+                   const void* ci, const void* ti, const void* ctb_set,
+                   int cw, const void* cf, const void* cl, const void* edges,
                    int log2_cs, int pix_max, void* stream) {
   AlfArgs a;
   a.p[0] = AlfPlane{(const short*)src, (short*)out, (const int*)ctb_set,
@@ -728,13 +779,13 @@ int ffvvc_alf_luma(const void* src, void* out, int H, int W, const void* ci,
   a.p[1] = a.p[0];
   a.ci = (const int*)ci;
   a.ti = (const int*)ti;
-  a.H = H;
+  if (!alf_rows(a, rows)) return (int)cudaErrorInvalidValue;
   a.W = W;
   a.cw = cw;
   a.log2_cs_v = a.log2_cs_h = log2_cs;
   a.vb_pos = (1 << log2_cs) - 4;   // alf.ALF_VB_POS_ABOVE_LUMA
   a.pix_max = pix_max;
-  const dim3 grid(cdiv(W, kTileW), cdiv(H, kTileH), 1);
+  const dim3 grid(cdiv(W, kTileW), cdiv(a.row0 + a.H - a.ty0, kTileH), 1);
   const dim3 block(kThreadsX, kTileH);
   if (edges)
     alf_kernel<true, true><<<grid, block, 0, (cudaStream_t)stream>>>(
@@ -745,10 +796,11 @@ int ffvvc_alf_luma(const void* src, void* out, int H, int W, const void* ci,
   return (int)cudaGetLastError();
 }
 
-// ptrs: [5n] (src, out, set, cf, cl) of each chroma plane, a host array.
-int ffvvc_alf_chroma(int n, const void* const* ptrs, const void* edges, int H,
-                     int W, int cw, int log2_cs_v, int log2_cs_h,
-                     int pix_max, void* stream) {
+// ptrs: [5n] (src at picture row row0, out, set, cf, cl) of each chroma
+// plane, a host array; rows: 5 ints for both planes (see slab_rows).
+int ffvvc_alf_chroma(int n, const void* const* ptrs, const void* edges,
+                     const int* rows, int W, int cw, int log2_cs_v,
+                     int log2_cs_h, int pix_max, void* stream) {
   AlfArgs a;
   for (int z = 0; z < 2; ++z) {
     const void* const* q = ptrs + 5 * (z < n ? z : 0);
@@ -756,14 +808,14 @@ int ffvvc_alf_chroma(int n, const void* const* ptrs, const void* edges, int H,
                       (const int*)q[3], (const int*)q[4]};
   }
   a.ci = a.ti = nullptr;
-  a.H = H;
+  if (!alf_rows(a, rows)) return (int)cudaErrorInvalidValue;
   a.W = W;
   a.cw = cw;
   a.log2_cs_v = log2_cs_v;
   a.log2_cs_h = log2_cs_h;
   a.vb_pos = (1 << log2_cs_v) - 2;   // alf.ALF_VB_POS_ABOVE_CHROMA
   a.pix_max = pix_max;
-  const dim3 grid(cdiv(W, kTileW), cdiv(H, kTileH), n);
+  const dim3 grid(cdiv(W, kTileW), cdiv(a.row0 + a.H - a.ty0, kTileH), n);
   const dim3 block(kThreadsX, kTileH);
   if (edges)
     alf_kernel<false, true><<<grid, block, 0, (cudaStream_t)stream>>>(
@@ -774,13 +826,16 @@ int ffvvc_alf_chroma(int n, const void* const* ptrs, const void* edges, int H,
   return (int)cudaGetLastError();
 }
 
-// ptrs: [4n] (dst, out, set, cf) of each chroma plane, a host array; luma
-// [H, W]; chroma [Hc, Wc] with CTBs of (1 << log2_cs_v) x (1 << log2_cs_h)
-// chroma samples; (hs, vs) is (1, 1), (1, 0) or (0, 0).
+// ptrs: [4n] (dst at chroma picture row row0, out, set, cf) of each chroma
+// plane, a host array; rows: 5 ints of the chroma rows (see slab_rows:
+// rlo and the buffer's rows are not read), lrows: 5 of the luma rows under
+// them (row0 << vs, Hc << vs) and of the luma buffer; luma at row row0 << vs;
+// W, Wc the luma and chroma widths; CTBs of (1 << log2_cs_v) x
+// (1 << log2_cs_h) chroma samples; (hs, vs) is (1, 1), (1, 0) or (0, 0).
 int ffvvc_cc(int n, const void* const* ptrs, const void* luma,
-             const void* edges, int H, int W, int Hc, int Wc, int cw,
-             int log2_cs_v, int log2_cs_h, int hs, int vs, int half,
-             int pix_max, void* stream) {
+             const void* edges, const int* rows, const int* lrows, int W,
+             int Wc, int cw, int log2_cs_v, int log2_cs_h, int hs, int vs,
+             int half, int pix_max, void* stream) {
   CcArgs a;
   for (int z = 0; z < 2; ++z) {
     const void* const* q = ptrs + 4 * (z < n ? z : 0);
@@ -792,9 +847,15 @@ int ffvvc_cc(int n, const void* const* ptrs, const void* luma,
   a.luma = (const short*)luma;
   a.edges = (const int*)edges;
   a.n = n;
-  a.H = H;
+  a.row0 = rows[0];
+  a.Hc = rows[1];
+  a.ty0 = a.row0 & ~(kTileH - 1);
+  int luma_h;
+  if (a.Hc <= 0 ||
+      !slab_rows(lrows, &a.lrow0, &luma_h, &a.H, &a.lrlo, &a.lrhi) ||
+      a.lrow0 != a.row0 << vs || luma_h != a.Hc << vs)
+    return (int)cudaErrorInvalidValue;
   a.W = W;
-  a.Hc = Hc;
   a.Wc = Wc;
   a.cw = cw;
   a.log2_cs_v = log2_cs_v;

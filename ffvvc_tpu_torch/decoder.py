@@ -8,19 +8,19 @@ DPB and output order, per-slice entry-point CABAC parsing into FrameTabs
 tensors, and the host reconstruction.  A copy of `ffvvc_tpu/decoder.py`,
 kept diffable line by line against it, with the device half in PyTorch:
 
-  * the mesh set-up and its drains are left out (`DecoderConfig` refuses a
-    mesh);
-  * in `_decode_frame` the row-pipeline gate and the fused-chain gate test
-    `device_pipeline`, and the fused chain is this package's
-    (`ops/fused_device.py`), run on `config.device`;
-  * the per-stage device filters (`device_lmcs`, `device_deblock`,
-    `device_sao`, `device_alf`) are this package's (`ops/lmcs_device.py`,
-    `deblock_device.py`, `sao_device.py`, `alf_device.py`), run on
-    `config.device`;
+  * the mesh (`mesh_shape`) is this package's `parallel/filters.py`
+    queue over a (gop, tile) array of torch devices (`config.device`
+    repeated);
+  * the fused chain (`device_pipeline`, `ops/fused_device.py`) and the
+    per-stage device filters (`device_lmcs`, `device_deblock`,
+    `device_sao`, `device_alf`; `ops/lmcs_device.py`, `deblock_device.py`,
+    `sao_device.py`, `alf_device.py`) are this package's, run on
+    `config.device` under backend "cuda";
   * the batched inverse transform (`ops/itx.py`), device MC (`device_mc`,
-    `ops/mc_device.py`, whole-frame and per row band) and device intra
-    (`device_intra`, `ops/intra_device.py`) are this package's, run on
-    `config.device` under backend "cuda"; none of them takes a mesh.
+    `ops/mc_device.py`, whole-frame and per row band, its puts split over
+    the mesh's "tile" axis) and device intra (`device_intra`,
+    `ops/intra_device.py`) are this package's, run on `config.device`
+    under backend "cuda".
 """
 from __future__ import annotations
 
@@ -174,6 +174,14 @@ class VVCDecoder:
         # while later frames parse (config.pipeline_frames/pipeline_depth)
         self._pix_exec = None
         self._pix_futures = []
+        # mesh-sharded filter pipeline (parallel/filters.py): frames over
+        # "gop", CTU-row slabs over "tile"; drains at inter ref barriers
+        self._mesh_q = None
+        g, t = self.config.mesh_shape
+        if g * t > 1:
+            from .parallel.filters import make_mesh_exact, MeshFilterQueue
+            self._mesh_q = MeshFilterQueue(make_mesh_exact(
+                (g, t), device=self.config.device))
 
     def decode(self, data: bytes, flush: bool = True):
         """Decode an Annex-B chunk.  With flush=True (whole-stream call)
@@ -268,6 +276,10 @@ class VVCDecoder:
         flush_frame()
         self._join_pixels()
         out.extend(self._output_frames(flush=flush))
+        if self._mesh_q is not None:
+            # frames reference live buffers; deferred mesh filters must
+            # land before the caller reads pixels
+            self._mesh_q.drain()
         self._check_pending_dph()
         if flush:
             self._release_dpb()
@@ -277,6 +289,8 @@ class VVCDecoder:
         """Drain remaining reordered frames (end of stream)."""
         self._join_pixels()
         out = self._output_frames(flush=True)
+        if self._mesh_q is not None:
+            self._mesh_q.drain()
         self._check_pending_dph()
         self._release_dpb()
         return out
@@ -585,30 +599,40 @@ class VVCDecoder:
         # trimmed to config.pipeline_depth to bound in-flight memory (the
         # reference's deep frame contexts, vvcdec.c:830-841).
         row_wait_refs = None
-        if is_inter_frame:
-            if os.environ.get("FFVVC_RPL_GATE", "1") == "0":  # A/B toggle
+        if self._mesh_q is not None:
+            if is_inter_frame:
+                # reference barrier: MC below reads DPB pixels — land the
+                # deferred mesh passes of the frames this frame actually
+                # references; non-referenced frames stay queued so the
+                # gop axis stays >1-deep on inter content (the collective
+                # form of the row-progress wait, vvc_thread.c:281-296)
                 self._join_pixels()
-            all_native = all(not hasattr(ip, "c")
-                             for ip, _ in inter_jobs)
-            if self.config.row_progress and all_native:
-                # row-granular gating: MC below waits per CTU row on
-                # just the reference rows it needs (wait_rows);
-                # references that can't publish rows degrade to a
-                # whole-frame wait inside wait_rows
-                row_wait_refs = [
-                    rf for rf in ref_frames
-                    if rf._pix_future is not None
-                    and not rf._pix_future.done()]
-            else:
-                for rf in ref_frames:
-                    fut = rf._pix_future
-                    if fut is not None:
-                        fut.result()
-        # with row gating the reference frames stay in flight: keep
-        # one extra pixel job queued so their rolling filters overlap
-        # this frame's MC (memory still bounded by pipeline_depth)
-        self._trim_pixels(max(1, self.config.pipeline_depth) -
-                          (0 if row_wait_refs else 1))
+                self._mesh_q.drain(needed={rf.buffer for rf in ref_frames})
+        else:
+            if is_inter_frame:
+                if os.environ.get("FFVVC_RPL_GATE", "1") == "0":  # A/B toggle
+                    self._join_pixels()
+                all_native = all(not hasattr(ip, "c")
+                                 for ip, _ in inter_jobs)
+                if self.config.row_progress and all_native:
+                    # row-granular gating: MC below waits per CTU row on
+                    # just the reference rows it needs (wait_rows);
+                    # references that can't publish rows degrade to a
+                    # whole-frame wait inside wait_rows
+                    row_wait_refs = [
+                        rf for rf in ref_frames
+                        if rf._pix_future is not None
+                        and not rf._pix_future.done()]
+                else:
+                    for rf in ref_frames:
+                        fut = rf._pix_future
+                        if fut is not None:
+                            fut.result()
+            # with row gating the reference frames stay in flight: keep
+            # one extra pixel job queued so their rolling filters overlap
+            # this frame's MC (memory still bounded by pipeline_depth)
+            self._trim_pixels(max(1, self.config.pipeline_depth) -
+                              (0 if row_wait_refs else 1))
 
         if self.config.backend == "cuda":
             # batched inverse transforms on device (one launch per TB bucket);
@@ -657,7 +681,8 @@ class VVCDecoder:
                     frame_device_mc([(ips[k], v)
                                      for k, v in jobs_row.items()],
                                     sps, sps.bit_depth,
-                                    device=self.config.device)
+                                    device=self.config.device,
+                                    mesh=self._mc_mesh())
                     continue
                 i = 0
                 while i < len(items):
@@ -671,12 +696,15 @@ class VVCDecoder:
             native_mc = []
         if native_mc and dev_mc:
             # batched device MC for simple regular blocks; the same C call
-            # host-filters the complex ones (ops/mc_device.py).
+            # host-filters the complex ones (ops/mc_device.py).  In mesh
+            # mode the put batches shard over the "tile" axis (refs
+            # replicated) so an inter frame's MC runs on all devices.
             from .ops.mc_device import frame_device_mc
             njobs = [(ip, ctus) for ip, ctus in inter_jobs
                      if not hasattr(ip, "c")]
             frame_device_mc(njobs, sps, sps.bit_depth,
-                            device=self.config.device)
+                            device=self.config.device,
+                            mesh=self._mc_mesh())
             native_mc = []
         if native_mc:
             # MC CTUs are data-independent (refs are other frames; DMVR
@@ -719,15 +747,17 @@ class VVCDecoder:
             # depends on these (TMVP reads the col MV grids written at
             # parse/inter time), so they overlap frame N+1's parse on the
             # frame pipeline (config.pipeline_frames)
+            mesh = self._mesh_q
             cfg = self.config
             # the rolling row pipeline only pays off when a later inter
             # frame can overlap its MC with this frame's filters: all-
             # intra streams keep the (stage-threaded) whole-frame passes
-            if (cfg.row_progress and cfg.pipeline_frames
+            if (mesh is None and cfg.row_progress and cfg.pipeline_frames
                     and self._seen_inter and
-                    not (cfg.device_intra or cfg.device_deblock or
-                         cfg.device_sao or cfg.device_alf or
-                         cfg.device_lmcs or cfg.device_pipeline)):
+                    not (cfg.backend == "cuda" and
+                         (cfg.device_intra or cfg.device_deblock or
+                          cfg.device_sao or cfg.device_alf or
+                          cfg.device_lmcs or cfg.device_pipeline))):
                 if self._pixel_stages_rows(frame, sps, pps, tabs, fb,
                                            recon_jobs, lmcs, sh_list,
                                            alf_list):
@@ -744,12 +774,14 @@ class VVCDecoder:
             # residual-add stage for inter-only frames), then
             # [residual-add]/LMCS/deblock-V/H/SAO/ALF/CC-ALF run as ONE
             # device chain on cfg.device — planes upload once, download once
-            fused = cfg.device_pipeline
-            # fused: defer recon's residual add for inter-only frames
+            fused = (mesh is None and cfg.backend == "cuda" and
+                     cfg.device_pipeline)
+            # mesh/fused: defer recon's residual add for inter-only frames
             # (no intra/CIIP CUs — those need the sequential neighbour
             # walk) so the add runs as a batched device pass
             defer_res = self._deferred_residuals(recon_jobs, fb) \
-                if (fused and is_inter_frame) else None
+                if ((mesh is not None or fused) and is_inter_frame) \
+                else None
             did_dev_intra = False
             if (defer_res is None and self.config.backend == "cuda" and
                     self.config.device_intra and not is_inter_frame):
@@ -793,8 +825,21 @@ class VVCDecoder:
                     defer_res = None
             # LMCS inverse mapping (stage before deblock, vvc_thread.c:44,
             # ff_vvc_lmcs_filter vvc_filter.c:1322)
+            lmcs_ctx = None
             if lmcs is not None:
-                if self.config.device_lmcs:
+                if mesh is not None:
+                    mask = np.zeros(fb.planes[0].shape, np.bool_)
+                    ctb = sps.ctb_size_y
+                    for rec, ctus in recon_jobs:
+                        if not rec.lmcs_used:
+                            continue
+                        for rs, rx, ry in ctus:
+                            mask[ry * ctb:(ry + 1) * ctb,
+                                 rx * ctb:(rx + 1) * ctb] = True
+                    if mask.any():
+                        lmcs_ctx = (lmcs.inv_lut, mask)
+                elif self.config.backend == "cuda" and \
+                        self.config.device_lmcs:
                     from .ops.lmcs_device import lmcs_frame_device
                     lmcs_frame_device(sps, pps, fb, lmcs, recon_jobs,
                                       cfg.device)
@@ -811,8 +856,11 @@ class VVCDecoder:
                             blk[:] = lmcs.inv_lut[blk]
             _stage("lmcs")
             # in-loop filters (whole-frame passes per spec 8.8)
-            done = False
-            if self.config.device_deblock:
+            defer_deblock = mesh is not None and \
+                not getattr(sps, "num_ladf_intervals", 0)
+            done = defer_deblock
+            if not done and self.config.backend == "cuda" and \
+                    self.config.device_deblock:
                 from .ops.deblock_device import deblock_frame_device
                 done = deblock_frame_device(sps, pps, tabs, fb,
                                             frame.slice_rpls, cfg.device)
@@ -824,34 +872,48 @@ class VVCDecoder:
                 db.n_threads = resolve(self.config.stage_threads)
                 db.deblock_frame()
             _stage("deblock")
-            if self.config.device_sao:
-                from .ops.sao_device import sao_frame_device
-                sao_frame_device(sps, pps, tabs, fb, cfg.device)
+            if mesh is not None:
+                # mesh-sharded residual-add/LMCS/deblock/SAO/ALF/CC-ALF
+                # (parallel/filters.py): deferred until a reference
+                # barrier needs this frame or the decode call ends, so
+                # independent frames batch over the "gop" axis
+                mesh.add(sps, pps, tabs, fb, sh_list, alf_list,
+                         slice_rpls=frame.slice_rpls if defer_deblock
+                         else None,
+                         res_planes=defer_res, lmcs_ctx=lmcs_ctx)
+                if dph is not None and self.config.verify_picture_hash:
+                    self._dph_pending.append((frame, dph))
             else:
-                from .sao import SaoFilter
-                from .threads import resolve
-                sf = SaoFilter(sps, pps, tabs, fb)
-                sf.n_threads = resolve(self.config.stage_threads)
-                sf.sao_frame()
-            if alf_list is not None:
-                if self.config.device_alf:
-                    from .ops.alf_device import alf_frame_device
-                    alf_frame_device(sps, pps, tabs, fb, sh_list,
-                                     alf_list, cfg.device)
+                if self.config.backend == "cuda" and self.config.device_sao:
+                    from .ops.sao_device import sao_frame_device
+                    sao_frame_device(sps, pps, tabs, fb, cfg.device)
                 else:
-                    done = False
-                    if self.config.native_alf:
-                        from .native.alf import alf_frame_native
-                        from .threads import resolve
-                        done = alf_frame_native(
-                            sps, pps, tabs, fb, sh_list, alf_list,
-                            resolve(self.config.stage_threads))
-                    if not done:
-                        from .alf import AlfFilter
-                        AlfFilter(sps, pps, tabs, fb, sh_list,
-                                  alf_list).alf_frame()
+                    from .sao import SaoFilter
+                    from .threads import resolve
+                    sf = SaoFilter(sps, pps, tabs, fb)
+                    sf.n_threads = resolve(self.config.stage_threads)
+                    sf.sao_frame()
+                if alf_list is not None:
+                    if self.config.backend == "cuda" and \
+                            self.config.device_alf:
+                        from .ops.alf_device import alf_frame_device
+                        alf_frame_device(sps, pps, tabs, fb, sh_list,
+                                         alf_list, cfg.device)
+                    else:
+                        done = False
+                        if self.config.native_alf:
+                            from .native.alf import alf_frame_native
+                            from .threads import resolve
+                            done = alf_frame_native(
+                                sps, pps, tabs, fb, sh_list, alf_list,
+                                resolve(self.config.stage_threads))
+                        if not done:
+                            from .alf import AlfFilter
+                            AlfFilter(sps, pps, tabs, fb, sh_list,
+                                      alf_list).alf_frame()
             _stage("sao_alf")
-            if dph is not None and self.config.verify_picture_hash:
+            if dph is not None and self.config.verify_picture_hash and \
+                    mesh is None:
                 self._check_picture_hash(frame, dph)
             # recycle native parse record arenas (everything pixel-level
             # that reads them — MC, CIIP, recon — has run; tabs keep the
@@ -884,6 +946,10 @@ class VVCDecoder:
         else:
             pixel_stages()
         return outputs
+
+    def _mc_mesh(self):
+        """Mesh for sharded device-MC puts (None on a single device)."""
+        return self._mesh_q.mesh if self._mesh_q is not None else None
 
     def _mc_row_needs(self, tabs, sps, pps):
         """Per-CTU-row max referenced luma row (exclusive) for inter MC:

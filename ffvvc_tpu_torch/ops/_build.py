@@ -30,17 +30,18 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # launcher -> argtypes (pointers and the stream as c_void_p, ints as c_int)
 _SIGNATURES = {
-    # n, ptrs [3n], dims [6n], shift, pix_max, stream
-    "ffvvc_sao": [_I, _P, _P, _I, _I, _P],
-    # src, out, H, W, ci, ti, ctb_set, cw, cf, cl, edges, log2_cs, pix_max,
-    # stream
-    "ffvvc_alf_luma": [_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I,
+    # n, ptrs [3n], dims [5n], rows [5n], shift, pix_max, stream
+    "ffvvc_sao": [_I, _P, _P, _P, _I, _I, _P],
+    # src, out, rows [5], W, ci, ti, ctb_set, cw, cf, cl, edges, log2_cs,
+    # pix_max, stream
+    "ffvvc_alf_luma": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I,
                        _P],
-    # n, ptrs [5n], edges, H, W, cw, log2_cs_v, log2_cs_h, pix_max, stream
-    "ffvvc_alf_chroma": [_I, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # n, ptrs [4n], luma, edges, H, W, Hc, Wc, cw, log2_cs_v, log2_cs_h, hs,
-    # vs, half, pix_max, stream
-    "ffvvc_cc": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+    # n, ptrs [5n], edges, rows [5], W, cw, log2_cs_v, log2_cs_h, pix_max,
+    # stream
+    "ffvvc_alf_chroma": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # n, ptrs [4n], luma, edges, rows [5], luma rows [5], W, Wc, cw,
+    # log2_cs_v, log2_cs_h, hs, vs, half, pix_max, stream
+    "ffvvc_cc": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                  _P],
 }
 

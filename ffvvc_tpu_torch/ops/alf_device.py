@@ -18,7 +18,11 @@ bit is set the tap's coordinate is clamped to the CTB on that side
 (`AlfFilter._window` of the golden model), after the virtual-boundary
 substitution.  On CUDA tensors each wrapper launches its kernel in
 csrc/filters.cu; on CPU tensors it runs its `*_ref` version, the same
-integer math in plain PyTorch.
+integer math in plain PyTorch.  Given a `Slab` (`sao_device.Slab`), each
+filters a band of the picture's rows as a whole-picture call filters them
+(the mesh's slabs, `parallel/filters.py`): the class and transpose indices
+of luma ALF then cover the 4x4 block rows of the slab's rows, and CC-ALF
+takes the luma rows under its chroma rows as a slab of their own.
 
 `alf_frame_device` is the per-stage entry point (`DecoderConfig.device_alf`,
 `ffvvc_tpu/ops/alf_device.py::alf_frame_device`), which also filters
@@ -35,7 +39,8 @@ from ..alf import (ALF_VB_POS_ABOVE_CHROMA, ALF_VB_POS_ABOVE_LUMA, AlfFilter,
                    _TRANSPOSE_IDX)
 
 from . import _build
-from .sao_device import MIN_CTB, _log2, as_wire, expand_ctb, stream_of
+from .sao_device import (MIN_CTB, Slab, _log2, as_wire, ctb_rows,
+                         stream_of)
 
 # luma 7x7-diamond tap geometry: (row_key_a, dx_a, row_key_b, dx_b) per
 # coefficient, row keys indexing the VB-resolved row planes 0..6
@@ -71,20 +76,20 @@ def vb_reach(ys, cs_v, vb_pos):
     return reach
 
 
-def _window_bounds(edges, cs_v, cs_h, H, W, sv=0, sh=0):
+def _window_bounds(edges, cs_v, cs_h, H, W, ys, sv=0, sh=0):
     """Per-sample bounds (xlo, xhi, ylo, yhi) of the coordinates a tap may
     take: the picture, or the sample's own CTB on the sides its edge word
-    names.  edges: int32 [ch, cw] over CTBs of cs_v x cs_h samples of an
-    [H, W] plane, or None (then the bounds are the picture's, as ints).
-    With sv/sh the bounds are those of a plane subsampled by these shifts
-    against the one the taps are read from ([H << sv, W << sh]): CC-ALF's
-    luma under a chroma sample."""
+    names, for the picture rows ys (a tensor).  edges: int32 [ch, cw] over
+    CTBs of cs_v x cs_h samples of an [H, W] plane, or None (then the
+    bounds are the picture's, as ints).  With sv/sh the bounds are those of
+    a plane subsampled by these shifts against the one the taps are read
+    from ([H << sv, W << sh]): CC-ALF's luma under a chroma sample."""
     if edges is None:
         return 0, (W << sh) - 1, 0, (H << sv) - 1
     dev = edges.device
-    e = expand_ctb(edges, cs_v, cs_h, H, W)
+    e = ctb_rows(edges, ys, cs_v, cs_h, W)
     xs = torch.arange(W, device=dev)[None, :]
-    ys = torch.arange(H, device=dev)[:, None]
+    ys = ys[:, None]
     x0, y0 = xs - (xs & (cs_h - 1)), ys - (ys & (cs_v - 1))
     x1 = torch.clamp(x0 + cs_h, max=W)
     y1 = torch.clamp(y0 + cs_v, max=H)
@@ -97,27 +102,33 @@ def _window_bounds(edges, cs_v, cs_h, H, W, sv=0, sh=0):
 # ---- ALF --------------------------------------------------------------------
 
 def alf_filter_plane_ref(src, cf_blk, cl_blk, blk_h, blk_w, slots, cs_v,
-                         cs_h, vb_pos, pix_max, edges=None):
+                         cs_h, vb_pos, pix_max, edges=None, slab=None,
+                         blk_row0=0):
     """Plain PyTorch clipped-diamond ALF of one plane
     (`fused_device._alf_filter_plane` of the JAX package, and with `edges`
-    `_alf_pallas` over `_AlfRasterizer`'s planes).  src: int16 [H, W];
-    cf_blk/cl_blk: int32 [nby, nbx, 12] per block of blk_h x blk_w samples;
-    slots: the tap slots in use; cs_v x cs_h: CTB size in the plane's
-    samples; vb_pos: the virtual boundary's row within a CTB row."""
-    H, W = src.shape
-    cur = src.to(torch.int32)
-    ys = torch.arange(H, device=src.device)
+    `_alf_pallas` over `_AlfRasterizer`'s planes).  src: int16 [R, W];
+    cf_blk/cl_blk: int32 [nby, nbx, 12] per block of blk_h x blk_w samples,
+    from block row blk_row0 of the picture on; slots: the tap slots in use;
+    cs_v x cs_h: CTB size in the plane's samples; vb_pos: the virtual
+    boundary's row within a CTB row; slab: the `Slab` of src, or None for
+    a whole picture."""
+    R, W = src.shape
+    sl = slab or Slab.whole(R)
+    wide = src.to(torch.int32)
+    ys = torch.arange(sl.row0, sl.row0 + sl.rows, device=src.device)
     xs = torch.arange(W, device=src.device)
+    cur = wide[sl.local(ys, R)]
     reach = vb_reach(ys, cs_v, vb_pos)
-    xlo, xhi, ylo, yhi = _window_bounds(edges, cs_v, cs_h, H, W)
+    xlo, xhi, ylo, yhi = _window_bounds(edges, cs_v, cs_h, sl.pic_h, W, ys)
 
     def at(k, dx):
         o = torch.clamp(torch.full_like(reach, _ROW_OFFSET[k]), -reach, reach)
-        return cur[torch.clamp((ys + o)[:, None], ylo, yhi),
-                   torch.clamp((xs + dx)[None, :], xlo, xhi)]
+        return wide[sl.local(torch.clamp((ys + o)[:, None], ylo, yhi), R),
+                    torch.clamp((xs + dx)[None, :], xlo, xhi)]
 
     def px(a):
-        return expand_ctb(a, blk_h, blk_w, H, W)
+        return a.index_select(0, ys // blk_h - blk_row0).repeat_interleave(
+            blk_w, 1)[:, :W]
     acc = torch.zeros_like(cur)
     for s in slots:
         ka, da, kb, db = _LUMA_TAPS[s]
@@ -131,31 +142,36 @@ def alf_filter_plane_ref(src, cf_blk, cl_blk, blk_h, blk_w, slots, cs_v,
 
 
 def alf_filter_luma_ref(src, ci, ti, ctb_set, cf_tab, cl_tab, cs, pix_max,
-                        edges=None):
-    """Plain PyTorch luma ALF.  src: int16 [H, W]; ci/ti: int32
-    [H / 4, W / 4] class and transpose index of each 4x4 block
-    (`fused_device.alf_classify`); ctb_set: int32 [ch, cw] filter set of
-    each CTB of cs x cs samples; cf_tab/cl_tab: int32 [sets, 25, 12];
-    edges: int32 [ch, cw] edge words, or None."""
+                        edges=None, slab=None):
+    """Plain PyTorch luma ALF.  src: int16 [R, W]; ci/ti: int32 class and
+    transpose index of each 4x4 block (`fused_device.alf_classify`), of the
+    block rows the output rows touch ([H / 4, W / 4] for a whole picture);
+    ctb_set: int32 [ch, cw] filter set of each CTB of cs x cs samples;
+    cf_tab/cl_tab: int32 [sets, 25, 12]; edges: int32 [ch, cw] edge words,
+    or None; slab: the `Slab` of src, or None for a whole picture."""
+    s = slab or Slab.whole(src.shape[0])
     nby, nbx = ci.shape
-    setidx = expand_ctb(ctb_set, cs // 4, cs // 4, nby, nbx).long()
+    brows = torch.arange(s.row0 >> 2, (s.row0 >> 2) + nby, device=src.device)
+    setidx = ctb_rows(ctb_set, brows, cs // 4, cs // 4, nbx).long()
     perm = torch.tensor(_TRANSPOSE_IDX, device=src.device)[ti.long()]
     cfb = torch.gather(cf_tab[setidx, ci.long()], 2, perm)
     clb = torch.gather(cl_tab[setidx, ci.long()], 2, perm)
     return alf_filter_plane_ref(src, cfb, clb, 4, 4, range(12), cs, cs,
-                                cs - ALF_VB_POS_ABOVE_LUMA, pix_max, edges)
+                                cs - ALF_VB_POS_ABOVE_LUMA, pix_max, edges,
+                                s, s.row0 >> 2)
 
 
 def alf_filter_chroma_ref(srcs, ctb_sets, cf_tabs, cl_tabs, cs_v, cs_h,
-                          pix_max, edges=None):
+                          pix_max, edges=None, slab=None):
     """Plain PyTorch chroma ALF of one or two planes of equal shape.  Per
-    plane: src int16 [H, W], ctb_set int32 [ch, cw] and the tables
+    plane: src int16 [R, W], ctb_set int32 [ch, cw] and the tables
     cf_tab/cl_tab int32 [sets, 12] (the slots chroma does not use hold
     cf 0); CTBs of cs_v x cs_h samples; edges: int32 [ch, cw] edge words
-    for both planes, or None."""
+    for both planes, or None; slab: the `Slab` of both, or None for whole
+    pictures."""
     return [alf_filter_plane_ref(
         x, cf[s.long()], cl[s.long()], cs_v, cs_h, _CHROMA_SLOT, cs_v, cs_h,
-        cs_v - ALF_VB_POS_ABOVE_CHROMA, pix_max, edges)
+        cs_v - ALF_VB_POS_ABOVE_CHROMA, pix_max, edges, slab)
         for x, s, cf, cl in zip(srcs, ctb_sets, cf_tabs, cl_tabs)]
 
 
@@ -192,61 +208,72 @@ def _edge_ptr(name, edges, ch, cw):
     return edges.data_ptr()
 
 
+def block_rows(slab):
+    """The 4x4 block rows a slab's output rows touch."""
+    return ((slab.row0 + slab.rows - 1) >> 2) - (slab.row0 >> 2) + 1
+
+
 def alf_filter_luma(src, ci, ti, ctb_set, cf_tab, cl_tab, cs, pix_max,
-                    edges=None):
+                    edges=None, slab=None):
     """Luma ALF: the CUDA kernel on CUDA tensors, `alf_filter_luma_ref`
-    (same arguments) on CPU tensors.  Returns a new int16 [H, W]."""
+    (same arguments) on CPU tensors.  Returns a new int16 [rows, W]."""
     if src.device.type == "cpu":
         return alf_filter_luma_ref(src, ci, ti, ctb_set, cf_tab, cl_tab, cs,
-                                   pix_max, edges)
+                                   pix_max, edges, slab)
     name = "alf_filter_luma"
     _check_cuda(name, (src,), (ci, ti, ctb_set, cf_tab, cl_tab))
-    H, W = src.shape
+    R, W = src.shape
+    s = slab or Slab.whole(R)
+    s.check(name, R)
     ch, cw = ctb_set.shape
-    _check(name, H % 4 == 0 and W % 4 == 0 and
-           ci.shape == ti.shape == (H // 4, W // 4) and
-           ch * cs >= H and cw * cs >= W and cs >= 32 and
+    _check(name, s.pic_h % 4 == 0 and W % 4 == 0 and
+           ci.shape == ti.shape == (block_rows(s), W // 4) and
+           ch * cs >= s.pic_h and cw * cs >= W and cs >= 32 and
            cf_tab.shape == cl_tab.shape and cf_tab.shape[1:] == (25, 12),
            "inconsistent shapes")
-    out = torch.empty_like(src)
+    out = src.new_empty((s.rows, W))
     err = _build.lib().ffvvc_alf_luma(
-        src.data_ptr(), out.data_ptr(), H, W, ci.data_ptr(), ti.data_ptr(),
-        ctb_set.data_ptr(), cw, cf_tab.data_ptr(), cl_tab.data_ptr(),
-        _edge_ptr(name, edges, ch, cw), _log2(cs, "cs"), pix_max,
-        stream_of(src))
+        s.at_row0(src), out.data_ptr(), s.args(R), W, ci.data_ptr(),
+        ti.data_ptr(), ctb_set.data_ptr(), cw, cf_tab.data_ptr(),
+        cl_tab.data_ptr(), _edge_ptr(name, edges, ch, cw), _log2(cs, "cs"),
+        pix_max, stream_of(src))
     _build.check(err, "ffvvc_alf_luma")
     _count(alf_filter_luma, edges)
     return out
 
 
 def alf_filter_chroma(srcs, ctb_sets, cf_tabs, cl_tabs, cs_v, cs_h, pix_max,
-                      edges=None):
+                      edges=None, slab=None):
     """Chroma ALF of one or two planes in one launch of the CUDA kernel on
     CUDA tensors, `alf_filter_chroma_ref` (same arguments) on CPU tensors.
-    Returns new int16 [H, W] tensors."""
+    Returns new int16 [rows, W] tensors."""
     if srcs[0].device.type == "cpu":
         return alf_filter_chroma_ref(srcs, ctb_sets, cf_tabs, cl_tabs, cs_v,
-                                     cs_h, pix_max, edges)
+                                     cs_h, pix_max, edges, slab)
     name = "alf_filter_chroma"
     n = len(srcs)
     _check(name, 1 <= n <= 2 and len(ctb_sets) == len(cf_tabs) ==
            len(cl_tabs) == n, "one or two planes, each with its parameters")
     _check_cuda(name, srcs, (*ctb_sets, *cf_tabs, *cl_tabs))
-    H, W = srcs[0].shape
+    R, W = srcs[0].shape
+    s = slab or Slab.whole(R)
+    s.check(name, R)
     ch, cw = ctb_sets[0].shape
-    _check(name, W % 4 == 0 and ch * cs_v >= H and cw * cs_h >= W and
+    _check(name, W % 4 == 0 and ch * cs_v >= s.pic_h and cw * cs_h >= W and
            min(cs_v, cs_h) >= MIN_CTB and
-           all(x.shape == (H, W) for x in srcs) and
+           all(x.shape == (R, W) for x in srcs) and
            all(s.shape == (ch, cw) for s in ctb_sets) and
            all(t.ndim == 2 and t.shape[1] == 12
                for t in (*cf_tabs, *cl_tabs)), "inconsistent shapes")
-    outs = [torch.empty_like(x) for x in srcs]
-    ptrs = [t.data_ptr() for z in range(n)
-            for t in (srcs[z], outs[z], ctb_sets[z], cf_tabs[z], cl_tabs[z])]
+    outs = [x.new_empty((s.rows, W)) for x in srcs]
+    ptrs = [p for z in range(n) for p in (
+        s.at_row0(srcs[z]), outs[z].data_ptr(), ctb_sets[z].data_ptr(),
+        cf_tabs[z].data_ptr(), cl_tabs[z].data_ptr())]
     err = _build.lib().ffvvc_alf_chroma(
         n, (ctypes.c_void_p * len(ptrs))(*ptrs),
-        _edge_ptr(name, edges, ch, cw), H, W, cw, _log2(cs_v, "cs_v"),
-        _log2(cs_h, "cs_h"), pix_max, stream_of(srcs[0]))
+        _edge_ptr(name, edges, ch, cw), s.args(R), W, cw,
+        _log2(cs_v, "cs_v"), _log2(cs_h, "cs_h"), pix_max,
+        stream_of(srcs[0]))
     _build.check(err, "ffvvc_alf_chroma")
     _count(alf_filter_chroma, edges)
     return outs
@@ -272,23 +299,28 @@ def cc_row_offsets(ys, cs_v, vs):
 
 
 def cc_filter_ref(dsts, luma, ctb_sets, cf_tabs, cs_v, cs_h, hs, vs, half,
-                  pix_max, edges=None):
+                  pix_max, edges=None, slab=None, luma_slab=None):
     """Plain PyTorch CC-ALF of one or two chroma planes
     (`fused_device._cc_filter` of the JAX package, and with `edges`
     `_cc_pallas` over `_AlfRasterizer._raster_cc`'s planes).  dsts: int16
-    [Hc, Wc] chroma planes; luma: int16 [Hc << vs, Wc << hs] pre-ALF luma;
-    per plane ctb_set int32 [ch, cw] and cf_tab int32 [sets, 7]; CTBs of
-    cs_v x cs_h chroma samples; edges: int32 [ch, cw] edge words, or
-    None."""
-    Hc, Wc = dsts[0].shape
+    [Rc, Wc] chroma planes; luma: int16 [R, Wc << hs] pre-ALF luma; per
+    plane ctb_set int32 [ch, cw] and cf_tab int32 [sets, 7]; CTBs of
+    cs_v x cs_h chroma samples; edges: int32 [ch, cw] edge words, or None;
+    slab, luma_slab: the `Slab` of the chroma planes and of the luma rows
+    under their output rows, or None for whole pictures."""
+    Rc, Wc = dsts[0].shape
+    s = slab or Slab.whole(Rc)
+    ls = luma_slab or Slab.whole(luma.shape[0])
     wide = luma.to(torch.int32)
-    ys = torch.arange(Hc, device=luma.device)
+    ys = torch.arange(s.row0, s.row0 + s.rows, device=luma.device)
     xs = torch.arange(Wc, device=luma.device)
     offs, skip = cc_row_offsets(ys, cs_v, vs)
-    xlo, xhi, ylo, yhi = _window_bounds(edges, cs_v, cs_h, Hc, Wc, vs, hs)
+    xlo, xhi, ylo, yhi = _window_bounds(edges, cs_v, cs_h, s.pic_h, Wc, ys,
+                                        vs, hs)
 
     def at(j, dx):
-        return wide[torch.clamp(((ys << vs) + offs[j])[:, None], ylo, yhi),
+        rows = torch.clamp(((ys << vs) + offs[j])[:, None], ylo, yhi)
+        return wide[ls.local(rows, luma.shape[0]),
                     torch.clamp(((xs << hs) + dx)[None, :], xlo, xhi)]
     cur = at(1, 0)
     diffs = [at(rk, dx) - cur for rk, dx in _CC_TAPS]
@@ -297,45 +329,51 @@ def cc_filter_ref(dsts, luma, ctb_sets, cf_tabs, cs_v, cs_h, hs, vs, half,
         cf_ctb = cf_tab[ctb_set.long()]              # [ch, cw, 7]
         acc = torch.zeros_like(cur)
         for j, diff in enumerate(diffs):
-            acc = acc + expand_ctb(cf_ctb[:, :, j], cs_v, cs_h, Hc, Wc) * diff
+            acc = acc + ctb_rows(cf_ctb[:, :, j], ys, cs_v, cs_h, Wc) * diff
         acc = torch.where(skip[:, None], 0, acc)
         acc = torch.clamp((acc + 64) >> 7, -half, half - 1)
-        outs.append(torch.clamp(dst.to(torch.int32) + acc, 0,
-                                pix_max).to(torch.int16))
+        own = dst[s.top:s.top + s.rows].to(torch.int32)
+        outs.append(torch.clamp(own + acc, 0, pix_max).to(torch.int16))
     return outs
 
 
 def cc_filter(dsts, luma, ctb_sets, cf_tabs, cs_v, cs_h, hs, vs, half,
-              pix_max, edges=None):
+              pix_max, edges=None, slab=None, luma_slab=None):
     """CC-ALF of one or two chroma planes in one launch of the CUDA kernel
     on CUDA tensors, `cc_filter_ref` (same arguments) on CPU tensors.
-    Returns new int16 [Hc, Wc] tensors."""
+    Returns new int16 [rows, Wc] tensors."""
     if dsts[0].device.type == "cpu":
         return cc_filter_ref(dsts, luma, ctb_sets, cf_tabs, cs_v, cs_h, hs,
-                             vs, half, pix_max, edges)
+                             vs, half, pix_max, edges, slab, luma_slab)
     name = "cc_filter"
     n = len(dsts)
     _check(name, 1 <= n <= 2 and len(ctb_sets) == len(cf_tabs) == n,
            "one or two planes, each with its parameters")
     _check_cuda(name, (*dsts, luma), (*ctb_sets, *cf_tabs))
-    Hc, Wc = dsts[0].shape
-    H, W = luma.shape
+    Rc, Wc = dsts[0].shape
+    R, W = luma.shape
+    s = slab or Slab.whole(Rc)
+    ls = luma_slab or Slab.whole(R)
+    s.check(name, Rc)
+    ls.check(name, R)
     ch, cw = ctb_sets[0].shape
     _check(name, (hs, vs) in ((1, 1), (1, 0), (0, 0)) and
-           (H, W) == (Hc << vs, Wc << hs) and Wc % 4 == 0 and
-           ch * cs_v >= Hc and cw * cs_h >= Wc and
+           W == Wc << hs and ls.pic_h == s.pic_h << vs and
+           (ls.row0, ls.rows) == (s.row0 << vs, s.rows << vs) and
+           Wc % 4 == 0 and ch * cs_v >= s.pic_h and cw * cs_h >= Wc and
            min(cs_v, cs_h) >= MIN_CTB and
-           all(x.shape == (Hc, Wc) for x in dsts) and
+           all(x.shape == (Rc, Wc) for x in dsts) and
            all(s.shape == (ch, cw) for s in ctb_sets) and
            all(t.ndim == 2 and t.shape[1] == 7 for t in cf_tabs),
            "inconsistent shapes")
-    _check(name, luma.data_ptr() % 16 == 0, "luma must be 16-byte aligned")
-    outs = [torch.empty_like(x) for x in dsts]
-    ptrs = [t.data_ptr() for z in range(n)
-            for t in (dsts[z], outs[z], ctb_sets[z], cf_tabs[z])]
+    _check(name, ls.at_row0(luma) % 16 == 0, "luma must be 16-byte aligned")
+    outs = [x.new_empty((s.rows, Wc)) for x in dsts]
+    ptrs = [p for z in range(n) for p in (
+        s.at_row0(dsts[z]), outs[z].data_ptr(), ctb_sets[z].data_ptr(),
+        cf_tabs[z].data_ptr())]
     err = _build.lib().ffvvc_cc(
-        n, (ctypes.c_void_p * len(ptrs))(*ptrs), luma.data_ptr(),
-        _edge_ptr(name, edges, ch, cw), H, W, Hc, Wc, cw,
+        n, (ctypes.c_void_p * len(ptrs))(*ptrs), ls.at_row0(luma),
+        _edge_ptr(name, edges, ch, cw), s.args(Rc), ls.args(R), W, Wc, cw,
         _log2(cs_v, "cs_v"), _log2(cs_h, "cs_h"), hs, vs, half, pix_max,
         stream_of(luma))
     _build.check(err, "ffvvc_cc")

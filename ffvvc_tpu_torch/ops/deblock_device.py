@@ -126,9 +126,17 @@ def _take(a, idx):
     return torch.gather(a, 1, idx.long()[:, None, None].expand(B, 1, L))[:, 0]
 
 
-def _scatter_add(plane, srows, scols, delta):
+def _scatter_add(plane, srows, scols, delta, row0=0, own_h=None):
+    """Scatter-add the deltas at frame rows srows (plane row r holds frame
+    row row0 + r); with own_h only those landing in the plane's middle
+    own_h rows (its halo rows and other slabs' rows get nothing)."""
     H, W = plane.shape
-    srows = srows.expand(delta.shape).clamp(0, H - 1).reshape(-1)
+    srows = srows.expand(delta.shape) - row0
+    if own_h is not None:
+        halo = (H - own_h) // 2
+        delta = torch.where((srows >= halo) & (srows < halo + own_h),
+                            delta, 0)
+    srows = srows.clamp(0, H - 1).reshape(-1)
     scols = scols.expand(delta.shape).clamp(0, W - 1).reshape(-1)
     return plane.index_put((srows, scols), delta.reshape(-1),
                            accumulate=True)
@@ -137,10 +145,14 @@ def _scatter_add(plane, srows, scols, delta):
 # ---- luma pass --------------------------------------------------------------
 
 def luma_math(plane, px, py, tc, beta, mlp, mlq, hce, vertical: bool,
-              pix_max: int):
+              pix_max: int, row0=0, own_h=None):
     """One whole-frame luma deblock direction: [B] int32 segment params ->
-    scatter-added deltas on int32 [H, W].  `deblock_device._luma_math`
-    (single-device form)."""
+    scatter-added deltas on int32 [H, W].  `deblock_device._luma_math`.
+
+    Slab mode (the mesh, `parallel/filters.py`): `plane` is a slab with
+    halo rows attached above and below, plane row r holds frame row
+    row0 + r, and only the deltas landing in the middle `own_h` rows are
+    added; the caller slices those rows back out."""
     H, W = plane.shape
     dev = plane.device
     lines = torch.arange(4, device=dev)
@@ -152,7 +164,7 @@ def luma_math(plane, px, py, tc, beta, mlp, mlq, hce, vertical: bool,
         rows = py[:, None, None] - 8 + taps[None, None, :]
         cols = px[:, None, None] + lines[None, :, None]
     # win[b, line, tap]
-    win = plane[rows.clamp(0, H - 1), cols.clamp(0, W - 1)]
+    win = plane[(rows - row0).clamp(0, H - 1), cols.clamp(0, W - 1)]
 
     def P(k):                              # [B, 4]
         return win[:, :, 7 - k]
@@ -327,15 +339,16 @@ def luma_math(plane, px, py, tc, beta, mlp, mlq, hce, vertical: bool,
     else:
         srows = py[:, None, None] - 7 + wtap[None, :, None]
         scols = px[:, None, None] + lines[None, None, :]
-    return _scatter_add(plane, srows, scols, delta)
+    return _scatter_add(plane, srows, scols, delta, row0, own_h)
 
 
 # ---- chroma pass ------------------------------------------------------------
 
 def chroma_math(plane, px, py, tc, beta, mlp, mlq, size, vertical: bool,
-                pix_max: int):
+                pix_max: int, row0=0, own_h=None):
     """One whole-frame chroma deblock direction.
-    `deblock_device._chroma_math` (single-device form)."""
+    `deblock_device._chroma_math`; row0/own_h: slab mode, see
+    `luma_math`."""
     H, W = plane.shape
     dev = plane.device
     lines = torch.arange(4, device=dev)    # padded; mask lines >= size
@@ -346,7 +359,7 @@ def chroma_math(plane, px, py, tc, beta, mlp, mlq, size, vertical: bool,
     else:
         rows = py[:, None, None] - 4 + taps[None, None, :]
         cols = px[:, None, None] + lines[None, :, None]
-    win = plane[rows.clamp(0, H - 1), cols.clamp(0, W - 1)]
+    win = plane[(rows - row0).clamp(0, H - 1), cols.clamp(0, W - 1)]
 
     ml1 = (mlp == 1)[:, None]
 
@@ -445,7 +458,7 @@ def chroma_math(plane, px, py, tc, beta, mlp, mlq, size, vertical: bool,
     else:
         srows = py[:, None, None] - 4 + wtap[None, :, None]
         scols = px[:, None, None] + lines[None, None, :]
-    return _scatter_add(plane, srows, scols, delta)
+    return _scatter_add(plane, srows, scols, delta, row0, own_h)
 
 
 def deblock_frame_device(sps, pps, tabs, fb, slice_rpls, device="cuda"):

@@ -38,11 +38,11 @@ from . import data as D
 
 from .alf_device import (EDGE_BOTTOM, EDGE_LEFT, EDGE_RIGHT, EDGE_TOP,
                          _CHROMA_SLOT, alf_filter_chroma, alf_filter_luma,
-                         cc_filter)
+                         block_rows, cc_filter)
 from .deblock_device import (rasterize_deblock, seg_array, luma_math,
                              chroma_math)
-from .sao_device import (_PARAM_ROWS, ctb_tables, expand_ctb, pack_params,
-                         pad_edge, sao_apply)
+from .sao_device import (_PARAM_ROWS, Slab, ctb_tables, expand_ctb,
+                         pack_params, pad_edge, sao_apply)
 
 # transfer accounting (bytes) and host-clock seconds of the two halves of
 # fused_frame_filters: building the parameters on the host (build_s) and
@@ -188,7 +188,7 @@ def alf_classify(P3, r0sel, r3sel, blk_start1, blk_end3, blk_ac, nby, nbx,
     return ci, ti
 
 
-def alf_classify_ctbs(y, edges, cs, bd):
+def alf_classify_ctbs(y, edges, cs, bd, slab=None):
     """ALF luma classification CTB by CTB, as the per-stage entry point
     needs it (`AlfFilter._classify` on `AlfFilter._window`): the window of
     every CTB, cs + 6 samples square, is gathered with its coordinates
@@ -198,13 +198,21 @@ def alf_classify_ctbs(y, edges, cs, bd):
     (`alf_device.ctb_edges`).  Returns (class_idx, transpose_idx) int32
     [H / 4, W / 4].  In a CTB that the picture cuts short the rows and
     columns of the window past its end hold repeated samples, which only
-    the blocks cropped away read."""
-    H, W = y.shape
+    the blocks cropped away read.  With a `Slab` (`sao_device.Slab`), y
+    holds a slab of the picture's rows, its halo included, and the result
+    covers the 4x4 block rows of the slab's output rows
+    (`alf_device.block_rows`): the CTB rows they lie in are classified,
+    their windows' rows also clamped to the rows y holds."""
+    R, W = y.shape
+    sl = slab or Slab.whole(R)
+    H = sl.pic_h
+    cy0, cy1 = sl.row0 // cs, (sl.row0 + sl.rows - 1) // cs + 1
+    edges = edges[cy0:cy1]
     ch, cw = edges.shape
     dev = y.device
     b = ALF_BORDER_LUMA
     k = torch.arange(-b, cs + b, device=dev)
-    y0 = (torch.arange(ch, device=dev) * cs)[:, None]
+    y0 = (torch.arange(cy0, cy1, device=dev) * cs)[:, None]
     x0 = (torch.arange(cw, device=dev) * cs)[None, :]
     ylo = torch.where(edges & EDGE_TOP != 0, y0, 0)
     yhi = torch.where(edges & EDGE_BOTTOM != 0,
@@ -212,7 +220,8 @@ def alf_classify_ctbs(y, edges, cs, bd):
     xlo = torch.where(edges & EDGE_LEFT != 0, x0, 0)
     xhi = torch.where(edges & EDGE_RIGHT != 0,
                       torch.clamp(x0 + cs, max=W), W) - 1
-    rows = torch.clamp(y0[..., None] + k, ylo[..., None], yhi[..., None])
+    rows = sl.local(torch.clamp(y0[..., None] + k, ylo[..., None],
+                                yhi[..., None]), R)
     cols = torch.clamp(x0[..., None] + k, xlo[..., None], xhi[..., None])
     win = y.to(torch.int32)[rows[..., :, None], cols[..., None, :]]
     r0, r3, s1, e3, ac = (torch.from_numpy(a).to(dev)
@@ -220,9 +229,11 @@ def alf_classify_ctbs(y, edges, cs, bd):
     n = cs // 4
     ci, ti = alf_classify(win, r0.long(), r3.long(), s1, e3, ac, n, n, bd)
 
-    def plane(a):       # [ch, cw, n, n] -> [H / 4, W / 4]
+    first = (sl.row0 >> 2) - cy0 * n
+
+    def plane(a):       # [ch, cw, n, n] -> [block rows, W / 4]
         return a.permute(0, 2, 1, 3).reshape(ch * n, cw * n)[
-            :H // 4, :W // 4].contiguous()
+            first:first + block_rows(sl), :W // 4].contiguous()
     return plane(ci), plane(ti)
 
 

@@ -26,6 +26,10 @@ plane (uploaded once, as 16-bit samples), every put output through PROF
 and the finals; a finals bucket comes down once, as 16-bit pixels.
 Integer width: int32, and int64 where the golden model needs it (GPM and
 the weighted finals).
+
+On a mesh (`parallel/mesh.py`) the blocks of a put bucket split over the
+"tile" axis: each part goes to its device with the reference plane, and
+the outputs come back to the call's device in order (`sharded_puts`).
 """
 from __future__ import annotations
 
@@ -343,15 +347,40 @@ def _put_bucket(ref, prm, w, h, is_luma, bd, hf_idx, vf_idx, fclass, wrap,
                         int(fclass), int(wrap), boxed)
 
 
+# mesh-sharded puts: the batch axis of a bucket partitions over the "tile"
+# mesh axis (the reference plane copied to each device, which gathers its
+# own blocks), the outputs concatenate back.  The form of the reference's
+# per-CTU inter tasks running on every worker (vvc_thread.c:432-450).
+sharded_puts = 0      # diagnostic counter (tests assert engagement)
+
+
+def _put_sharded(ref, prm, mesh, *statics):
+    """`_put_bucket` with its blocks split over the mesh's "tile" devices
+    (gop row 0) when there are at least as many blocks as tiles; the
+    outputs come back to ref's device in block order."""
+    global sharded_puts
+    t = mesh.shape["tile"] if mesh is not None else 1
+    if mesh is None or prm.shape[0] < t:
+        return _put_bucket(ref, prm, *statics)
+    outs = [_put_bucket(ref.to(mesh.device(0, i)), part.to(mesh.device(0, i)),
+                        *statics).to(ref.device)
+            for i, part in enumerate(torch.tensor_split(prm, t))]
+    sharded_puts += 1
+    return torch.cat(outs)
+
+
 def mc_put_batch(ref_plane, xs, ys, frac_x, frac_y, w, h, is_luma, bd,
-                 hf_idx=0, vf_idx=0, wrap=0, box=None, device="cuda"):
+                 hf_idx=0, vf_idx=0, wrap=0, box=None, device="cuda",
+                 mesh=None):
     """Host-facing batched put for one (w, h, frac-class) bucket.
 
     ref_plane: np.int32 [H, W]; xs/ys/frac_x/frac_y: np arrays [B].
     All blocks in a call share bool(frac_x) / bool(frac_y) (the caller
     buckets by frac-class); per-block fractional phases may differ.
     box: optional [B, 4] inclusive clamp boxes (DMVR prefetch windows).
-    Returns np.int32 [B, h, w] (14-bit domain)."""
+    mesh: optional mesh (`parallel/mesh.py`) — the batch partitions across
+    its "tile" devices when it has at least as many blocks.  Returns
+    np.int32 [B, h, w] (14-bit domain)."""
     dev = torch.device(device)
     frac_x, frac_y = np.asarray(frac_x), np.asarray(frac_y)
     fclass = (1 if frac_x.any() else 0) | (2 if frac_y.any() else 0)
@@ -360,8 +389,8 @@ def mc_put_batch(ref_plane, xs, ys, frac_x, frac_y, w, h, is_luma, bd,
         cols += list(np.asarray(box).reshape(len(cols[0]), 4).T)
     prm = _up(np.stack(cols, axis=1), dev, np.int32)
     ref = _up(ref_plane, dev, np.int32)
-    return _down(_put_bucket(ref, prm, w, h, is_luma, bd, hf_idx, vf_idx,
-                             fclass, wrap, box is not None))
+    return _down(_put_sharded(ref, prm, mesh, w, h, is_luma, bd, hf_idx,
+                              vf_idx, fclass, wrap, box is not None))
 
 
 def mc_avg_batch(s0, s1, bd, device="cuda"):
@@ -681,7 +710,7 @@ def _expand_subblocks(d, rpl, native_jobs, nc, hs, vs, add_put, entries,
                                     sbh >> vs, slots, wparams(c), False))
 
 
-def frame_device_mc(native_jobs, sps, bd, device="cuda"):
+def frame_device_mc(native_jobs, sps, bd, device="cuda", mesh=None):
     """Whole-frame batched device MC for the regular (non-subblock) blocks
     of every native inter job, including explicit-weighted-prediction /
     BCW finals, LMCS forward mapping, and horizontal wraparound; the blocks
@@ -690,8 +719,9 @@ def frame_device_mc(native_jobs, sps, bd, device="cuda"):
     documented there).
 
     native_jobs: [(NativeRecon, ctus)].  Puts batch per (ref plane, size,
-    filter class); the uni/bi/weighted finals batch per size.  A failure
-    raises: nothing is handed back to the host MC."""
+    filter class), split over the "tile" devices of `mesh` when one is
+    given; the uni/bi/weighted finals batch per size.  A failure raises:
+    nothing is handed back to the host MC."""
     dev = torch.device(device)
     t = time.perf_counter()
     stats["calls"] += 1
@@ -807,9 +837,9 @@ def frame_device_mc(native_jobs, sps, bd, device="cuda"):
     for key, b in put_buckets.items():
         _pid, w, h, is_luma, hf_idx, has_fx, has_fy, wrap, boxed = key
         fclass = (1 if has_fx else 0) | (2 if has_fy else 0)
-        vals[key] = _put_bucket(
-            planes(b["plane"]), _up(b["prm"], dev, np.int32), w, h, is_luma,
-            bd, hf_idx, hf_idx, fclass, wrap, boxed)
+        vals[key] = _put_sharded(
+            planes(b["plane"]), _up(b["prm"], dev, np.int32), mesh, w, h,
+            is_luma, bd, hf_idx, hf_idx, fclass, wrap, boxed)
         stats["put_buckets"] += 1
         stats["put_blocks"] += len(b["prm"])
         stats["put_class"][fclass] += 1

@@ -9,7 +9,9 @@ which cover the picture's border and the restore regions at slice and tile
 boundaries that filtering must not cross.  On CUDA tensors it launches
 `sao_kernel` (csrc/filters.cu) once for all planes; the kernel expands the
 per-CTB parameters itself.  On CPU tensors it runs `sao_apply_ref`, the same
-integer math in plain PyTorch.
+integer math in plain PyTorch.  Given a `Slab`, it filters a band of the
+picture's rows (the mesh's cut, `parallel/filters.py`) as a whole-picture
+launch filters them.
 
 `sao_frame_device` is the per-stage entry point (`DecoderConfig.device_sao`,
 `ffvvc_tpu/ops/sao_device.py::sao_frame_device`): planes up, one call of
@@ -19,6 +21,7 @@ integer math in plain PyTorch.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -37,6 +40,61 @@ TABLE_ROWS = 11
 _PARAM_ROWS = ("typ", "m1", "offs", "kl", "kr", "kt", "kb", "ax", "bx")
 # the narrowest CTB the kernels' tiles are laid out for
 MIN_CTB = 16
+
+
+class Slab(NamedTuple):
+    """The rows a kernel launch filters, in picture rows: the output holds
+    rows [row0, row0 + rows) of a plane pic_h rows high, and the source
+    buffer holds the rows from row0 - top on, the slab's halo above
+    included (and below it whatever rows the buffer has left).  Rows are
+    read as the whole picture reads them, clamped to the picture, and
+    further to the rows the buffer holds: a slab's output equals the same
+    rows of a whole-picture launch wherever its halo covers what they
+    read.  `whole(H)` is the whole picture."""
+    row0: int
+    rows: int
+    pic_h: int
+    top: int = 0
+
+    @classmethod
+    def whole(cls, H):
+        return cls(0, H, H, 0)
+
+    def span(self, R):
+        """(rlo, rhi): the picture rows a buffer of R rows holds, inside
+        the picture."""
+        base = self.row0 - self.top
+        return max(base, 0), min(base + R, self.pic_h) - 1
+
+    def local(self, ys, R):
+        """Picture rows ys (a tensor) clamped to what a buffer of R rows
+        holds, as indices into the buffer."""
+        rlo, rhi = self.span(R)
+        return ys.clamp(rlo, rhi) - (self.row0 - self.top)
+
+    def args(self, R):
+        """The five ints a launcher takes for a buffer of R rows:
+        row0, rows, pic_h, the buffer's first picture row, R."""
+        return (ctypes.c_int * 5)(self.row0, self.rows, self.pic_h,
+                                  self.row0 - self.top, R)
+
+    def check(self, name, R):
+        if not (0 <= self.top and self.top + self.rows <= R and
+                0 <= self.row0 and self.rows > 0 and
+                self.row0 + self.rows <= self.pic_h):
+            raise ValueError(f"{name}: slab {tuple(self)} does not fit a "
+                             f"buffer of {R} rows")
+
+    def at_row0(self, x):
+        """Address of the buffer's row row0 (its row `top`)."""
+        return x.data_ptr() + self.top * x.stride(0) * x.element_size()
+
+
+def ctb_rows(a, ys, cs_v, cs_h, W):
+    """Per-CTB [.., ch, cw] -> per-sample [.., len(ys), W] for the picture
+    rows ys (a tensor): each sample takes its CTB's value."""
+    return a.index_select(-2, ys // cs_v).repeat_interleave(
+        cs_h, -1)[..., :W]
 
 
 def expand_ctb(a, cs_v, cs_h, H, W):
@@ -198,19 +256,22 @@ def sao_math(src_pad, typ, m1, offs, keep, shift, pix_max):
     return torch.where(keep, cen, out)
 
 
-def _sao_plane_ref(plane, prm, cs_v, cs_h, shift, pix_max):
-    H, W = plane.shape
+def _sao_plane_ref(plane, prm, cs_v, cs_h, shift, pix_max, slab):
+    R, W = plane.shape
+    s = slab or Slab.whole(R)
+    dev = plane.device
+    rows = torch.arange(s.row0, s.row0 + s.rows, device=dev)
 
     def px(a):
-        return expand_ctb(a, cs_v, cs_h, H, W)
+        return ctb_rows(a, rows, cs_v, cs_h, W)
     typ, m1 = px(prm[0]), px(prm[1])
     offs = torch.stack([px(prm[2 + k]) for k in range(5)])
-    xs = torch.arange(W, dtype=torch.int32, device=plane.device)[None, :]
-    ys = torch.arange(H, dtype=torch.int32, device=plane.device)[:, None]
+    xs = torch.arange(W, dtype=torch.int32, device=dev)[None, :]
+    ys = rows.to(torch.int32)[:, None]
     x_loc, y_loc = xs & (cs_h - 1), ys & (cs_v - 1)
     # the last column and row of each sample's CTB inside the picture
     x_end = torch.clamp(xs - x_loc + cs_h, max=W) - 1
-    y_end = torch.clamp(ys - y_loc + cs_v, max=H) - 1
+    y_end = torch.clamp(ys - y_loc + cs_v, max=s.pic_h) - 1
 
     def within(v, r):
         r = px(r)
@@ -219,55 +280,67 @@ def _sao_plane_ref(plane, prm, cs_v, cs_h, shift, pix_max):
         ((xs == x_end) & within(y_loc, prm[8])) | \
         ((y_loc == 0) & within(x_loc, prm[9])) | \
         ((ys == y_end) & within(x_loc, prm[10]))
-    out = sao_math(pad_edge(plane.to(torch.int32), 1), typ, m1, offs, keep,
-                   shift, pix_max)
+    # the output's rows and one more each side, clamped as the kernel
+    # clamps them; the columns edge-padded by one
+    src = plane.to(torch.int32).index_select(0, s.local(
+        torch.arange(s.row0 - 1, s.row0 + s.rows + 1, device=dev), R))
+    cols = torch.arange(-1, W + 1, device=dev).clamp_(0, W - 1)
+    out = sao_math(src.index_select(1, cols), typ, m1, offs, keep, shift,
+                   pix_max)
     return out.to(torch.int16)
 
 
-def sao_apply_ref(planes, prms, sizes, shift, pix_max):
+def sao_apply_ref(planes, prms, sizes, shift, pix_max, slabs=None):
     """Plain PyTorch SAO (`fused_device._sao_apply`) of a list of planes.
     planes: int16 [H, W] each; prms: the int32 [11, ch, cw] per-CTB table
     of each (`ctb_tables`, `pack_params`); sizes: (cs_v, cs_h) CTB size of
-    each in its samples.  Returns new int16 planes."""
-    return [_sao_plane_ref(x, p, cs_v, cs_h, shift, pix_max)
-            for x, p, (cs_v, cs_h) in zip(planes, prms, sizes)]
+    each in its samples; slabs: a `Slab` of each plane (its rows of the
+    picture), or None for whole pictures.  Returns new int16 planes, of
+    each slab its output rows."""
+    slabs = slabs or [None] * len(planes)
+    return [_sao_plane_ref(x, p, cs_v, cs_h, shift, pix_max, sl)
+            for x, p, (cs_v, cs_h), sl in zip(planes, prms, sizes, slabs)]
 
 
-def sao_apply(planes, prms, sizes, shift, pix_max):
+def sao_apply(planes, prms, sizes, shift, pix_max, slabs=None):
     """SAO of up to three planes: one launch of the CUDA kernel on CUDA
     tensors, `sao_apply_ref` on CPU tensors.  Same arguments as
-    `sao_apply_ref`; returns new int16 [H, W] tensors."""
+    `sao_apply_ref`; returns new int16 [rows, W] tensors."""
     kind = planes[0].device.type
     if kind == "cpu":
-        return sao_apply_ref(planes, prms, sizes, shift, pix_max)
+        return sao_apply_ref(planes, prms, sizes, shift, pix_max, slabs)
     if kind != "cuda":
         raise ValueError(f"sao_apply: unsupported device {planes[0].device}")
     n = len(planes)
     if not 1 <= n <= 3 or len(prms) != n or len(sizes) != n:
         raise ValueError("sao_apply: one to three planes, each with its "
                          "parameters and CTB size")
-    outs, ptrs, dims = [], [], []
-    for x, p, (cs_v, cs_h) in zip(planes, prms, sizes):
-        H, W = x.shape
+    outs, ptrs, dims, rows = [], [], [], []
+    for x, p, (cs_v, cs_h), sl in zip(planes, prms, sizes,
+                                      slabs or [None] * n):
+        R, W = x.shape
+        sl = sl or Slab.whole(R)
+        sl.check("sao_apply", R)
         if x.dtype != torch.int16 or p.dtype != torch.int32 or \
                 not (x.is_cuda and p.is_cuda and x.is_contiguous()
                      and p.is_contiguous()) or x.data_ptr() % 8:
             raise ValueError("sao_apply: contiguous, 8-byte aligned CUDA "
                              "int16 planes and int32 parameters expected")
         ch, cw = p.shape[1:]
-        if p.shape[0] != TABLE_ROWS or ch * cs_v < H or cw * cs_h < W or \
-                W % 4 or min(cs_v, cs_h) < MIN_CTB:
+        if p.shape[0] != TABLE_ROWS or ch * cs_v < sl.pic_h or \
+                cw * cs_h < W or W % 4 or min(cs_v, cs_h) < MIN_CTB:
             raise ValueError("sao_apply: parameters [11, ch, cw] must cover "
                              "the plane, its width a multiple of 4 and its "
                              f"CTB at least {MIN_CTB}")
-        out = torch.empty_like(x)
+        out = x.new_empty((sl.rows, W))
         outs.append(out)
-        ptrs += [x.data_ptr(), out.data_ptr(), p.data_ptr()]
-        dims += [H, W, ch, cw, _log2(cs_v, "cs_v"), _log2(cs_h, "cs_h")]
+        ptrs += [sl.at_row0(x), out.data_ptr(), p.data_ptr()]
+        dims += [W, ch, cw, _log2(cs_v, "cs_v"), _log2(cs_h, "cs_h")]
+        rows += list(sl.args(R))
     err = _build.lib().ffvvc_sao(
         n, (ctypes.c_void_p * len(ptrs))(*ptrs),
-        (ctypes.c_int * len(dims))(*dims), shift, pix_max,
-        stream_of(planes[0]))
+        (ctypes.c_int * len(dims))(*dims), (ctypes.c_int * len(rows))(*rows),
+        shift, pix_max, stream_of(planes[0]))
     _build.check(err, "ffvvc_sao")
     sao_apply.launches += 1
     return outs

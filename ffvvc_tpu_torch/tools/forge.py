@@ -881,22 +881,8 @@ def insert_picture_hashes(stream: bytes, yuvs, bit_depth: int) -> bytes:
     monochrome assumed when it divides evenly, else 4:4:4/4:2:2 by
     ratio).  Single-slice AUs assumed (forge output)."""
     import hashlib
+    from ffvvc_tpu_torch.pipeline import _iter_units
     from ffvvc_tpu_torch.bitstream.nal import is_vcl
-
-    def _iter_units(data):
-        """Yield (chunk_bytes, nal_type, first_rbsp_bit) per Annex-B unit
-        (copy of ffvvc_tpu/pipeline.py's function of that name)."""
-        starts = []
-        i = data.find(b"\x00\x00\x01")
-        while i != -1:
-            starts.append((i - 1 if i > 0 and data[i - 1] == 0 else i, i + 3))
-            i = data.find(b"\x00\x00\x01", i + 3)
-        for n, (s, p) in enumerate(starts):
-            end = starts[n + 1][0] if n + 1 < len(starts) else len(data)
-            begin = 0 if n == 0 else s   # fold leading_zero_8bits into unit 0
-            t = data[p + 1] >> 3 if p + 1 < end else 0
-            fb = (data[p + 2] >> 7) & 1 if p + 2 < end else 0
-            yield data[begin:end], t, fb
 
     def sei_nal(yuv):
         n = len(yuv)

@@ -64,16 +64,18 @@ DIFFER = {
     "native/sao.py": ("ffvvc_tpu/native/sao.py", 16),
     "native/alf.py": ("ffvvc_tpu/native/alf.py", 16),
     "cabac/native.py": ("ffvvc_tpu/cabac/native.py", 22),
-    # the reference's fields plus `device`, backend "cuda", the mesh
-    # refusal, and what device_sao, device_alf and device_intra do in the
-    # port (61 lines)
-    "config.py": ("ffvvc_tpu/config.py", 65),
-    # no mesh; the port's _decode_frame (device dispatch in PyTorch).  With
-    # the device_mc and device_intra branches and the itx call back, 234
-    # lines (255 without them; what is left is the mesh)
-    "decoder.py": ("ffvvc_tpu/decoder.py", 234),
-    # no path set-up; its own copy of pipeline._iter_units
-    "tools/forge.py": ("tools/forge.py", 24),
+    # the reference's fields plus `device`, backend
+    # "cuda", and what device_sao, device_alf and device_intra do in the
+    # port (56 lines)
+    "config.py": ("ffvvc_tpu/config.py", 56),
+    # the reference's _decode_frame, mesh included, with backend "cuda" and
+    # the torch device passed to every device stage (70 lines)
+    "decoder.py": ("ffvvc_tpu/decoder.py", 70),
+    # no path set-up (7 lines)
+    "tools/forge.py": ("tools/forge.py", 7),
+    # spawned GOP workers when a stage runs on CUDA, pools keyed by start
+    # method, segments shipped through the temp directory (50 lines)
+    "pipeline.py": ("ffvvc_tpu/pipeline.py", 50),
 }
 
 
@@ -115,7 +117,8 @@ def test_every_host_file_is_accounted_for():
            "ops/lmcs_device.py", "ops/mc_device.py", "ops/inter_device.py",
            "ops/itx.py", "ops/intra_device.py", "csrc/filters.cu",
            "native/_build.py", "tools/__init__.py", "tools/alf_ab.py",
-           "tools/decode.py", "tools/sass.py"}
+           "tools/decode.py", "tools/sass.py", "parallel/__init__.py",
+           "parallel/mesh.py", "parallel/filters.py"}
     found = set()
     for d, dirs, names in os.walk(os.path.join(ROOT, "ffvvc_tpu_torch")):
         dirs[:] = [x for x in dirs if x not in ("build", "__pycache__")]
@@ -192,7 +195,7 @@ def test_port_loads_its_own_libraries():
                                   height=64, seed=0))
     assert parse.load_lib()._name.startswith(native_build.BUILD_DIR + os.sep)
     with open("/proc/self/maps") as f:
-        mapped = {line.split()[-1] for line in f if "libvvc_" in line}
+        mapped = {_mapped_path(line) for line in f if "libvvc_" in line}
     ours = {m for m in mapped if m.startswith(native_build.BUILD_DIR)}
     assert ours, mapped
     # the JAX package's libraries lie beside the module that loaded them,
@@ -200,6 +203,28 @@ def test_port_loads_its_own_libraries():
     theirs = os.path.dirname(jparse.__file__)
     for m in mapped - ours:
         assert m.startswith(theirs + os.sep), m
+
+
+def _mapped_path(line):
+    """The file of a /proc/self/maps line: its sixth field onward (a path
+    may hold spaces), less the " (deleted)" the kernel appends once the
+    file was replaced on disk, as another process's build of a missing
+    library does while this one holds the old file mapped."""
+    path = line.rstrip("\n").split(None, 5)[5]
+    return path[:-len(" (deleted)")] if path.endswith(" (deleted)") else path
+
+
+@pytest.mark.parametrize("line,path", [
+    ("7f3a1c000000-7f3a1c004000 r--p 00000000 08:01 1234 "
+     "/x/build/libvvc_parse-ab12.so\n", "/x/build/libvvc_parse-ab12.so"),
+    ("7f3a1c000000-7f3a1c004000 r-xp 00004000 08:01 1234 "
+     "/x/ffvvc_tpu/native/libvvc_parse.so (deleted)\n",
+     "/x/ffvvc_tpu/native/libvvc_parse.so"),
+    ("7f3a1c000000-7f3a1c004000 r--p 00000000 08:01 1234 "
+     "/a dir/libvvc_mc.so\n", "/a dir/libvvc_mc.so"),
+])
+def test_mapped_path_parses_proc_maps(line, path):
+    assert _mapped_path(line) == path
 
 
 # ---- the native build helper ------------------------------------------------

@@ -14,6 +14,9 @@ gets bytes, never an object of the reference.
 
 Every comparison is integer equality (tolerance 0).
 """
+import concurrent.futures
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -368,6 +371,21 @@ def test_decoder_device_mc_dmvr_bdof(name):
     assert stats["bilin_buckets"] > 0
 
 
+class _LatePixels(concurrent.futures.ThreadPoolExecutor):
+    """The decoder's pixel thread, each job started `delay` seconds
+    late."""
+
+    def __init__(self, delay):
+        super().__init__(max_workers=1, thread_name_prefix="ffvvc-pixels")
+        self.delay = delay
+
+    def submit(self, fn):
+        def late():
+            time.sleep(self.delay)
+            return fn()
+        return super().submit(late)
+
+
 def test_row_progress_with_device_mc(monkeypatch):
     """Twin of tests/test_pipeline.py::test_row_progress_with_device_mc:
     the consumer's MC waits per row and each row band is one
@@ -385,14 +403,22 @@ def test_row_progress_with_device_mc(monkeypatch):
         log["waits"] += 1
         return orig_wait(self, y)
 
-    def spy_mc(jobs, sps, bd, device="cuda"):
+    def spy_mc(jobs, sps, bd, device="cuda", mesh=None):
         log["mc_calls"] += 1
-        assert device == "cpu"
-        return orig_mc(jobs, sps, bd, device=device)
+        assert device == "cpu" and mesh is None
+        return orig_mc(jobs, sps, bd, device=device, mesh=mesh)
 
     monkeypatch.setattr(pdecoder.DecodedFrame, "wait_rows", spy_wait)
     monkeypatch.setattr(mc_device, "frame_device_mc", spy_mc)
-    a = port_yuv(s, device_mc=True)
+    # every pixel job starts late, so that the references are still being
+    # filtered when the next frame's MC runs, whatever the host's load
+    # (with the pixel thread on time a busy host may finish them first)
+    dec = VVCDecoder(DecoderConfig(device="cpu", device_mc=True))
+    dec._pix_exec = _LatePixels(0.2)
+    try:
+        a = b"".join(f.to_yuv_bytes() for f in dec.decode(s))
+    finally:
+        dec._pix_exec.shutdown()
     monkeypatch.undo()
     assert a == port_yuv(s, row_progress=False, pipeline_frames=False)
     assert a == host_yuv(s)

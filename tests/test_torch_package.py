@@ -117,6 +117,10 @@ def test_no_jax_imports():
            for mod in _imports(f)
            if mod.split(".")[0] in ("jax", "jaxlib", "ffvvc_tpu")]
     assert len(files) > 40
+    # the GOP workers and the mesh are scanned too
+    rel = {os.path.relpath(f, ROOT) for f in files}
+    assert {"ffvvc_tpu_torch/pipeline.py", "ffvvc_tpu_torch/parallel/mesh.py",
+            "ffvvc_tpu_torch/parallel/filters.py"} <= rel
     assert not bad, bad
 
 
@@ -189,17 +193,10 @@ def test_backend_tpu_refused():
     dict(device_lmcs=True), dict(device_mc=True), dict(device_intra=True),
     dict(mesh_shape=(1, 2))])
 def test_unported_toggle_raises(toggle):
-    """The per-stage filter toggles, device_mc and device_intra are ported
-    and construct; a mesh, still to be ported, raises naming its ROADMAP.md
-    item."""
-    items = {"mesh_shape": "item 11"}
+    """Every toggle of the JAX package is ported and constructs, the mesh
+    (`mesh_shape`) included; nothing is left to refuse."""
     (name, value), = toggle.items()
-    if name not in items:
-        assert getattr(DecoderConfig(device="cpu", **toggle), name) is True
-        return
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md queue 1 {items[name]}"):
-        DecoderConfig(device="cpu", **toggle)
+    assert getattr(DecoderConfig(device="cpu", **toggle), name) == value
 
 
 def test_stage_toggles_construct_together():

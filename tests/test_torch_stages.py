@@ -424,3 +424,38 @@ def test_missing_cc_aps_skips_the_ctb():
     assert np.array_equal(ap["cc1_cf"], [np.zeros(7), cc[0][0]])
     assert ap["cc2_set"].tolist() == [[0, 1]]
     assert np.array_equal(ap["cc2_cf"][1], cc[1][0])
+
+
+# ---- backend "golden" runs no device filter -----------------------------------
+
+_ENTRY = {"device_sao": ("sao_device", "sao_frame_device"),
+          "device_alf": ("alf_device", "alf_frame_device"),
+          "device_deblock": ("deblock_device", "deblock_frame_device"),
+          "device_lmcs": ("lmcs_device", "lmcs_frame_device"),
+          "device_pipeline": ("fused_device", "fused_frame_filters")}
+
+
+@pytest.mark.parametrize("toggle", sorted(_ENTRY))
+def test_golden_backend_makes_no_device_calls(toggle, monkeypatch):
+    """With backend="golden" a device filter toggle changes nothing: the
+    Python model filters on the host, as in ffvvc_tpu, whose decoder
+    requires its device backend at each of these stages; no entry point of
+    a device filter is called, and the YUV equals the host decode."""
+    import importlib
+    calls = []
+    for mod_name, fn_name in _ENTRY.values():
+        mod = importlib.import_module(f"ffvvc_tpu_torch.ops.{mod_name}")
+        real = getattr(mod, fn_name)
+
+        def counting(*a, _real=real, **kw):
+            calls.append(1)
+            return _real(*a, **kw)
+        monkeypatch.setattr(mod, fn_name, counting)
+    # the stream of ROADMAP.md fault 3.1, with ALF, CC-ALF and LMCS on too
+    s = forge_inter_stream(slice_type=2, nframes=2, width=96, height=64,
+                           seed=1, deblock=True, **TOOLS)
+    assert port_yuv(s, backend="golden", **{toggle: True}) == jax_yuv(s)
+    assert not calls
+    # the same toggle under backend "cuda" (on device="cpu") does call it
+    assert port_yuv(s, **{toggle: True}) == jax_yuv(s)
+    assert calls
