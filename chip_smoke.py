@@ -2,6 +2,9 @@
 
     python3 chip_smoke.py
 
+It needs one card; where several are visible, phase 9 also runs the mesh
+across them.
+
 Phases, each of which raises on a fault (the script then exits non-zero):
 
 1. Environment: torch/CUDA versions, the card, its power limit, nvcc.
@@ -87,21 +90,33 @@ Phases, each of which raises on a fault (the script then exits non-zero):
    buckets by family, host ms by section, MB up and down, the stage's ms
    beside the host C recon's, and for the first frame of `c-recon` the
    device busy time and kernel count under the profiler.
-8. The mesh (ffvvc_tpu_torch/parallel/, `mesh_shape`), every slab on this
-   card: first one slab-origin launch of each kernel and variant at the
-   1080p shapes, cut where the mesh cuts a (1, 2) picture, torch.equal to
-   the same rows of a whole-picture launch; then `c-recon` at (2, 2) (one
+8. The mesh (ffvvc_tpu_torch/parallel/, `mesh_shape`), every slab on card
+   0 (an explicit `mesh_devices` list that repeats it): first one
+   slab-origin launch of each kernel and variant at the 1080p shapes, cut
+   where the mesh cuts a (1, 2) picture, torch.equal to the same rows of a
+   whole-picture launch; then `c-recon` at (2, 2) (one
    drain over a gop of 2), `across-off` at (1, 2) (SAO's restore regions,
    ALF and CC-ALF with edge words, on slabs) and `inter-b` at (1, 2) with
    device_mc (puts split over the tile axis, a selective drain at the
    reference barrier), each md5-equal to its host decode, the launch
    counts set to 0 just before each and read just after: every kernel
    launches (`launches_mesh` in the summary).
-9. GOP workers (ffvvc_tpu_torch/pipeline.py): a 3-frame multi-IDR 1080p10
+9. The mesh across cards (`mesh_devices` left to its default, the visible
+   cards): the card count and the peer access of each pair; with one card
+   a line that says the cross-card decodes did not run.  With two or more:
+   on each card past the first, with card 0 current, one slab launch of
+   each kernel against its whole-picture launch; `across-off` and
+   `inter-b` at (1, 2) on cuda:0-1, with four cards also `c-recon` at
+   (2, 2) on cuda:0-3 (one drain over a gop of 2); each md5-equal to its
+   host decode, every kernel launched on every card of its mesh (the
+   wrappers' per-device counts), `inter-b`'s puts split over the cards;
+   ms a frame beside the one-card form's of phase 8 and the bytes of
+   reference plane sent to each other card a frame.
+10. GOP workers (ffvvc_tpu_torch/pipeline.py): a 3-frame multi-IDR 1080p10
    stream (forge_scaling_stream) through decode_parallel with 3 workers
    and device_sao on the card: the pool is spawned, and the YUV md5
    equals the sequential host decode; both walls printed.
-10. No module of the JAX package and no JAX was loaded.
+11. No module of the JAX package and no JAX was loaded.
 
 Each phase prints its seconds.  The last two lines of stdout are a JSON
 summary of the kernels and the contract line
@@ -1513,6 +1528,17 @@ def launch_counts():
 def reset_launches():
     for fn, *_ in KERNELS.values():
         fn.launches = fn.edge_launches = 0     # SAO has no edge variant
+        fn.launches_by_device = {}
+
+
+# the four wrappers, by the name of the kernel each launches
+WRAPPERS = {k: fn for k, (fn, *_) in KERNELS.items() if "/" not in k}
+
+
+def launches_by_card():
+    """{wrapper name: {card index: launches}}."""
+    return {k: dict(sorted(fn.launches_by_device.items()))
+            for k, fn in WRAPPERS.items()}
 
 
 def check_slab_launches(dev):
@@ -1606,70 +1632,152 @@ class MeshLog:
         PF.MeshFilterQueue.drain = self.orig
 
 
-def mesh_decode(label, stream, ref_md5, mesh_shape, smi, **toggles):
-    """One warm-up decode on a mesh of `mesh_shape` entries of DEVICE, as
-    decode() warms up the per-stage path, then the timed decode: counts
-    from zero just before it and read just after, checked against the host
-    decode's md5.  Returns (launches, drains, sharded puts, frames,
-    seconds) of the timed decode."""
+def one_card(mesh_shape):
+    """The explicit device list of the one-card form of a mesh: card 0
+    (or DEVICE where there is no card) at every position."""
+    g, t = mesh_shape
+    return ("cuda:0" if DEVICE == "cuda" else DEVICE,) * (g * t)
+
+
+def mesh_decode(label, stream, ref_md5, mesh_shape, smi, devices=None,
+                **toggles):
+    """One warm-up decode on a mesh of `mesh_shape` over `devices`
+    (`DecoderConfig.mesh_devices`; None: the visible cards), as decode()
+    warms up the per-stage path, then the timed decode: counts from zero
+    just before it and read just after, checked against the host decode's
+    md5.  Returns what the timed decode counted: launches (of KERNELS and
+    by card), drains, sharded puts, bytes of reference plane sent to each
+    other card, frames, seconds."""
     from ffvvc_tpu_torch import DecoderConfig, VVCDecoder
-    tag = f"[{label}/mesh {mesh_shape[0]}x{mesh_shape[1]}]"
-    cfg = DecoderConfig(device=DEVICE, mesh_shape=mesh_shape, **toggles)
+    g, t = mesh_shape
+    where = "visible cards" if devices is None else ",".join(devices)
+    tag = f"[{label}/mesh {g}x{t} on {where}]"
+    cfg = DecoderConfig(device=DEVICE, mesh_shape=mesh_shape,
+                        mesh_devices=devices, **toggles)
     VVCDecoder(cfg).decode(stream)                 # warm-up
     reset_launches()
     before = mc_device.sharded_puts
+    mc_device.sharded_ref_bytes.clear()
     if DEVICE == "cuda":
         torch.cuda.synchronize()
     with MeshLog() as log:
         t0 = time.monotonic()
         md5, n = yuv_md5(VVCDecoder(cfg).decode(stream))
         dt = time.monotonic() - t0
-    launches = launch_counts()
-    sharded = mc_device.sharded_puts - before
+    out = dict(launches=launch_counts(), by_card=launches_by_card(),
+               drains=log.drains, sharded=mc_device.sharded_puts - before,
+               ref_bytes=dict(mc_device.sharded_ref_bytes), frames=n,
+               seconds=dt, ms=dt / n * 1e3)
     print(f"{tag} {json.dumps(toggles)} {n} frames in {dt:.3f} s = "
-          f"{dt / n * 1e3:.1f} ms per frame (warm), md5 {md5}; drains "
+          f"{out['ms']:.1f} ms per frame (warm), md5 {md5}; drains "
           f"(queued, landed of them or all): {log.drains}; hand-kernel "
-          f"launches {json.dumps(launches)} [{smi}]")
+          f"launches {json.dumps(out['launches'])}, by card "
+          f"{json.dumps(out['by_card'])} [{smi}]")
     if md5 != ref_md5:
         raise AssertionError(f"{tag} md5 {md5} != host {ref_md5}")
-    return launches, log.drains, sharded, n, dt
+    return out
 
 
 def mesh_phase(smi, streams, refs):
-    """The mesh on this card: slab launches against whole-picture ones,
-    then three decodes.  Returns the hand kernels' launch counts on the
-    mesh path: of `c-recon` for the kernels the summary counts on the main
-    path, of `across-off` for those it counts on `across-off`."""
+    """The mesh on one card (every position on card 0, an explicit list):
+    slab launches against whole-picture ones, then three decodes.  Returns
+    the hand kernels' launch counts on the mesh path (of `c-recon` for the
+    kernels the summary counts on the main path, of `across-off` for those
+    it counts on `across-off`) and, for the mesh-cards phase, each decode's
+    (label, shape, toggles, stream, host md5, ms a frame)."""
     if DEVICE == "cuda":
         check_slab_launches(torch.device(DEVICE, 0))
-    # c-recon on a (2, 2) mesh: both frames in one drain over the gop axis
-    main, drains, _, _, _ = mesh_decode(
-        "c-recon", streams["c-recon"], refs["c-recon"], (2, 2), smi)
-    if (2, None) not in drains:
-        raise AssertionError(f"[c-recon/mesh] no drain over a gop of 2: "
-                             f"{drains}")
-    # across-off on (1, 2): restore regions and edge words on slabs
-    stages, _, _, _, _ = mesh_decode(
-        "across-off", streams["across-off"], refs["across-off"], (1, 2), smi)
-    # inter-b on (1, 2) with device_mc: puts over the tile axis, drains of
-    # the referenced frames only at the reference barrier
     stream = forge_cached(forge_hier_alf, width=W, height=H, **INTER_B)
     ref_md5, _ = yuv_md5(host_frames(stream))
-    launches, drains, sharded, _, _ = mesh_decode(
-        "inter-b", stream, ref_md5, (1, 2), smi, device_mc=True)
-    print(f"[inter-b/mesh 1x2] sharded puts {sharded}; selective drains "
-          f"{[d for d in drains if d[1] is not None]}")
-    if not sharded or not any(d[1] for d in drains if d[1] is not None):
-        raise AssertionError(f"[inter-b/mesh] sharded puts {sharded}, "
-                             f"drains {drains}")
+    # c-recon on a (2, 2) mesh: both frames in one drain over the gop axis;
+    # across-off on (1, 2): restore regions and edge words on slabs;
+    # inter-b on (1, 2) with device_mc: puts over the tile axis, drains of
+    # the referenced frames only at the reference barrier
+    cases = (("c-recon", (2, 2), {}, streams["c-recon"], refs["c-recon"]),
+             ("across-off", (1, 2), {}, streams["across-off"],
+              refs["across-off"]),
+             ("inter-b", (1, 2), {"device_mc": True}, stream, ref_md5))
+    done, runs = [], {}
+    for label, shape, toggles, st, ref in cases:
+        runs[label] = r = mesh_decode(label, st, ref, shape, smi,
+                                      one_card(shape), **toggles)
+        done.append((label, shape, toggles, st, ref, r["ms"]))
+    if (2, None) not in runs["c-recon"]["drains"]:
+        raise AssertionError(f"[c-recon/mesh] no drain over a gop of 2: "
+                             f"{runs['c-recon']['drains']}")
+    r = runs["inter-b"]
+    selective = [d for d in r["drains"] if d[1] is not None]
+    print(f"[inter-b/mesh 1x2] sharded puts {r['sharded']}; selective drains "
+          f"{selective}")
+    if not r["sharded"] or not any(d[1] for d in selective):
+        raise AssertionError(f"[inter-b/mesh] sharded puts {r['sharded']}, "
+                             f"drains {r['drains']}")
     if DEVICE == "cuda" and not all(
-            v for k, v in launches.items() if KERNELS[k][1] != "edges"):
-        raise AssertionError(f"[inter-b/mesh] launches {launches}")
-    out = {k: (main if KERNELS[k][3] == MAIN else stages)[k]
-           for k in KERNELS}
+            v for k, v in r["launches"].items() if KERNELS[k][1] != "edges"):
+        raise AssertionError(f"[inter-b/mesh] launches {r['launches']}")
+    out = {k: runs["c-recon" if KERNELS[k][3] == MAIN else
+                   "across-off"]["launches"][k] for k in KERNELS}
     if DEVICE == "cuda" and not all(out.values()):
         raise AssertionError(f"a kernel never launched on the mesh: {out}")
-    return out
+    return out, done
+
+
+def mesh_cards(smi, done):
+    """The mesh across cards: the decodes of the mesh phase again with
+    `mesh_devices` left to its default, the visible cards, one a mesh
+    position: `across-off` and `inter-b` at (1, 2) where two or more are
+    visible, also `c-recon` at (2, 2) where four are.  First, on each card
+    past the first (card 0 stays current), one slab launch of each kernel
+    against its whole-picture launch.  Each decode must equal its host
+    decode, launch every kernel on every card of its mesh and, with
+    device_mc, split its puts over the cards; its ms a frame stand beside
+    the one-card form's, with the bytes of reference plane each card
+    received and the peer access of each pair of cards."""
+    tag = "[mesh-cards]"
+    n = torch.cuda.device_count() if DEVICE == "cuda" else 1
+    peers = {f"{a}->{b}": torch.cuda.can_device_access_peer(a, b)
+             for a in range(n) for b in range(n) if a != b}
+    print(f"{tag} {n} card(s) visible; peer access {json.dumps(peers)} "
+          f"[{smi}]")
+    if n < 2:
+        print(f"{tag} one card is visible: the cross-card decodes did not "
+              "run")
+        return
+    every = subprocess.run(["nvidia-smi", "--query-gpu=index,name,power.limit",
+                            "--format=csv,noheader"], capture_output=True,
+                           text=True, check=True, timeout=60).stdout
+    print(f"{tag} cards: " + "; ".join(every.strip().splitlines()))
+    for k in range(1, n):
+        check_slab_launches(torch.device("cuda", k))
+    for label, shape, toggles, stream, ref_md5, one_ms in done:
+        g, t = shape
+        if g * t > n:
+            print(f"{tag} {label} at {shape} needs {g * t} cards: not run")
+            continue
+        r = mesh_decode(label, stream, ref_md5, shape, smi, **toggles)
+        if g > 1 and (g, None) not in r["drains"]:
+            raise AssertionError(f"{tag} {label}: no drain over a gop of "
+                                 f"{g}: {r['drains']}")
+        cards = list(range(g * t))
+        missing = {k: [c for c in cards if not by.get(c)]
+                   for k, by in r["by_card"].items()}
+        per_frame = {d: round(b / r["frames"]) for d, b in
+                     sorted(r["ref_bytes"].items())}
+        print(f"{tag} {label} at {shape} on cuda:0-{g * t - 1}: "
+              f"{r['ms']:.1f} ms a frame, one card {one_ms:.1f} ms a frame; "
+              f"sharded puts {r['sharded']}, bytes of reference plane sent "
+              f"to each other card {json.dumps(r['ref_bytes'])} in "
+              f"{r['frames']} frames, {json.dumps(per_frame)} a frame "
+              f"[{smi}, {n} cards]")
+        if any(missing.values()):
+            raise AssertionError(f"{tag} {label}: a kernel never launched "
+                                 f"on a card of the mesh: {missing}")
+        if toggles.get("device_mc") and not (
+                r["sharded"] and set(r["ref_bytes"]) ==
+                {f"cuda:{c}" for c in range(1, t)}):
+            raise AssertionError(f"{tag} {label}: puts not split over the "
+                                 f"cards: {r['sharded']}, "
+                                 f"{r['ref_bytes']}")
 
 
 def host_frames(stream):
@@ -1835,8 +1943,10 @@ def main():
     for k, n in phase("intra-main", intra_main, smi, streams["c-recon"],
                       refs["c-recon"]).items():
         summary[k]["launches_intra"] = n
-    for k, n in phase("mesh", mesh_phase, smi, streams, refs).items():
+    mesh, done = phase("mesh", mesh_phase, smi, streams, refs)
+    for k, n in mesh.items():
         summary[k]["launches_mesh"] = n
+    phase("mesh-cards", mesh_cards, smi, done)
     phase("gop-workers", gop_workers, smi)
     phase("intra-tools", intra_tools, smi)
     for k in summary:

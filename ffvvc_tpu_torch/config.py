@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 
-from .ops import resolve_device
+from .ops import resolve_device, resolve_mesh_devices
 
 @dataclasses.dataclass
 class DecoderConfig:
@@ -35,6 +35,9 @@ class DecoderConfig:
 
     # Mesh for multi-device decode: (gop, tile) axes. (1, 1) = single chip.
     mesh_shape: tuple = (1, 1)
+    # Devices of the mesh, gop-major; None: the visible cards cuda:0.. for a
+    # CUDA `device`, `device` repeated otherwise.  A list may repeat one.
+    mesh_devices: tuple | None = None
 
     # Single-device batched pixel pipeline: run the deferred filter chain
     # (residual-add / LMCS / deblock / SAO / ALF / CC-ALF) through the
@@ -145,3 +148,5 @@ class DecoderConfig:
         if self.backend == "golden":
             self.native_cabac = self.native_parse = self.native_alf = False
         resolve_device(self.device)
+        if self.mesh_devices is not None:
+            resolve_mesh_devices(self.mesh_devices, self.device)

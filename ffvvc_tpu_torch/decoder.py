@@ -181,7 +181,7 @@ class VVCDecoder:
         if g * t > 1:
             from .parallel.filters import make_mesh_exact, MeshFilterQueue
             self._mesh_q = MeshFilterQueue(make_mesh_exact(
-                (g, t), device=self.config.device))
+                (g, t), self.config.mesh_devices, self.config.device))
 
     def decode(self, data: bytes, flush: bool = True):
         """Decode an Annex-B chunk.  With flush=True (whole-stream call)

@@ -19,3 +19,27 @@ def resolve_device(name: str) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {name!r} (cuda or cpu)")
     return dev
+
+
+def resolve_mesh_devices(names, device):
+    """The torch devices of a config's `mesh_devices`: a tuple or list of
+    device names or torch.device, each resolved as `device` is, every one
+    of `device`'s type (no mixing of "cpu" and "cuda"), and each CUDA
+    index among the visible cards."""
+    if not isinstance(names, (tuple, list)) or not names:
+        raise TypeError(f"mesh_devices must be a non-empty tuple of device "
+                        f"names, not {names!r}")
+    if not all(isinstance(n, (str, torch.device)) for n in names):
+        raise TypeError(f"mesh_devices entries must be device names or "
+                        f"torch.device, not {names!r}")
+    devs = [resolve_device(str(n)) for n in names]
+    kind = torch.device(device).type
+    if any(d.type != kind for d in devs):
+        raise ValueError(f"mesh_devices {names!r} mix device types, or "
+                         f"differ from device {device!r}")
+    over = [d for d in devs if d.type == "cuda" and
+            (d.index or 0) >= torch.cuda.device_count()]
+    if over:
+        raise ValueError(f"mesh_devices {over} past the "
+                         f"{torch.cuda.device_count()} visible cards")
+    return devs

@@ -17,12 +17,14 @@ bits, `ctb_edges`), every tap is taken from the CTB's own window: where a
 bit is set the tap's coordinate is clamped to the CTB on that side
 (`AlfFilter._window` of the golden model), after the virtual-boundary
 substitution.  On CUDA tensors each wrapper launches its kernel in
-csrc/filters.cu; on CPU tensors it runs its `*_ref` version, the same
-integer math in plain PyTorch.  Given a `Slab` (`sao_device.Slab`), each
-filters a band of the picture's rows as a whole-picture call filters them
-(the mesh's slabs, `parallel/filters.py`): the class and transpose indices
-of luma ALF then cover the 4x4 block rows of the slab's rows, and CC-ALF
-takes the luma rows under its chroma rows as a slab of their own.
+csrc/filters.cu, on their card and that card's current stream (tensors of
+one call on different devices raise); on CPU tensors it runs its `*_ref`
+version, the same integer math in plain PyTorch.  Given a `Slab`
+(`sao_device.Slab`), each filters a band of the picture's rows as a
+whole-picture call filters them (the mesh's slabs, `parallel/filters.py`):
+the class and transpose indices of luma ALF then cover the 4x4 block rows
+of the slab's rows, and CC-ALF takes the luma rows under its chroma rows
+as a slab of their own.
 
 `alf_frame_device` is the per-stage entry point (`DecoderConfig.device_alf`,
 `ffvvc_tpu/ops/alf_device.py::alf_frame_device`), which also filters
@@ -39,8 +41,8 @@ from ..alf import (ALF_VB_POS_ABOVE_CHROMA, ALF_VB_POS_ABOVE_LUMA, AlfFilter,
                    _TRANSPOSE_IDX)
 
 from . import _build
-from .sao_device import (MIN_CTB, Slab, _log2, as_wire, ctb_rows,
-                         stream_of)
+from .sao_device import (MIN_CTB, Slab, _log2, as_wire, count_launch,
+                         ctb_rows, one_device, stream_of)
 
 # luma 7x7-diamond tap geometry: (row_key_a, dx_a, row_key_b, dx_b) per
 # coefficient, row keys indexing the VB-resolved row planes 0..6
@@ -193,8 +195,8 @@ def _check_cuda(name, i16, i32):
            "planes must be 8-byte aligned")
 
 
-def _count(wrapper, edges):
-    wrapper.launches += 1
+def _count(wrapper, edges, dev):
+    count_launch(wrapper, dev)
     wrapper.edge_launches += edges is not None
 
 
@@ -217,10 +219,11 @@ def alf_filter_luma(src, ci, ti, ctb_set, cf_tab, cl_tab, cs, pix_max,
                     edges=None, slab=None):
     """Luma ALF: the CUDA kernel on CUDA tensors, `alf_filter_luma_ref`
     (same arguments) on CPU tensors.  Returns a new int16 [rows, W]."""
-    if src.device.type == "cpu":
+    name = "alf_filter_luma"
+    dev = one_device(name, (src, ci, ti, ctb_set, cf_tab, cl_tab, edges))
+    if dev.type == "cpu":
         return alf_filter_luma_ref(src, ci, ti, ctb_set, cf_tab, cl_tab, cs,
                                    pix_max, edges, slab)
-    name = "alf_filter_luma"
     _check_cuda(name, (src,), (ci, ti, ctb_set, cf_tab, cl_tab))
     R, W = src.shape
     s = slab or Slab.whole(R)
@@ -232,13 +235,14 @@ def alf_filter_luma(src, ci, ti, ctb_set, cf_tab, cl_tab, cs, pix_max,
            cf_tab.shape == cl_tab.shape and cf_tab.shape[1:] == (25, 12),
            "inconsistent shapes")
     out = src.new_empty((s.rows, W))
-    err = _build.lib().ffvvc_alf_luma(
-        s.at_row0(src), out.data_ptr(), s.args(R), W, ci.data_ptr(),
-        ti.data_ptr(), ctb_set.data_ptr(), cw, cf_tab.data_ptr(),
-        cl_tab.data_ptr(), _edge_ptr(name, edges, ch, cw), _log2(cs, "cs"),
-        pix_max, stream_of(src))
+    with torch.cuda.device(dev):
+        err = _build.lib().ffvvc_alf_luma(
+            s.at_row0(src), out.data_ptr(), s.args(R), W, ci.data_ptr(),
+            ti.data_ptr(), ctb_set.data_ptr(), cw, cf_tab.data_ptr(),
+            cl_tab.data_ptr(), _edge_ptr(name, edges, ch, cw),
+            _log2(cs, "cs"), pix_max, stream_of(src))
     _build.check(err, "ffvvc_alf_luma")
-    _count(alf_filter_luma, edges)
+    _count(alf_filter_luma, edges, dev)
     return out
 
 
@@ -247,10 +251,11 @@ def alf_filter_chroma(srcs, ctb_sets, cf_tabs, cl_tabs, cs_v, cs_h, pix_max,
     """Chroma ALF of one or two planes in one launch of the CUDA kernel on
     CUDA tensors, `alf_filter_chroma_ref` (same arguments) on CPU tensors.
     Returns new int16 [rows, W] tensors."""
-    if srcs[0].device.type == "cpu":
+    name = "alf_filter_chroma"
+    dev = one_device(name, (*srcs, *ctb_sets, *cf_tabs, *cl_tabs, edges))
+    if dev.type == "cpu":
         return alf_filter_chroma_ref(srcs, ctb_sets, cf_tabs, cl_tabs, cs_v,
                                      cs_h, pix_max, edges, slab)
-    name = "alf_filter_chroma"
     n = len(srcs)
     _check(name, 1 <= n <= 2 and len(ctb_sets) == len(cf_tabs) ==
            len(cl_tabs) == n, "one or two planes, each with its parameters")
@@ -269,13 +274,14 @@ def alf_filter_chroma(srcs, ctb_sets, cf_tabs, cl_tabs, cs_v, cs_h, pix_max,
     ptrs = [p for z in range(n) for p in (
         s.at_row0(srcs[z]), outs[z].data_ptr(), ctb_sets[z].data_ptr(),
         cf_tabs[z].data_ptr(), cl_tabs[z].data_ptr())]
-    err = _build.lib().ffvvc_alf_chroma(
-        n, (ctypes.c_void_p * len(ptrs))(*ptrs),
-        _edge_ptr(name, edges, ch, cw), s.args(R), W, cw,
-        _log2(cs_v, "cs_v"), _log2(cs_h, "cs_h"), pix_max,
-        stream_of(srcs[0]))
+    with torch.cuda.device(dev):
+        err = _build.lib().ffvvc_alf_chroma(
+            n, (ctypes.c_void_p * len(ptrs))(*ptrs),
+            _edge_ptr(name, edges, ch, cw), s.args(R), W, cw,
+            _log2(cs_v, "cs_v"), _log2(cs_h, "cs_h"), pix_max,
+            stream_of(srcs[0]))
     _build.check(err, "ffvvc_alf_chroma")
-    _count(alf_filter_chroma, edges)
+    _count(alf_filter_chroma, edges, dev)
     return outs
 
 
@@ -342,10 +348,11 @@ def cc_filter(dsts, luma, ctb_sets, cf_tabs, cs_v, cs_h, hs, vs, half,
     """CC-ALF of one or two chroma planes in one launch of the CUDA kernel
     on CUDA tensors, `cc_filter_ref` (same arguments) on CPU tensors.
     Returns new int16 [rows, Wc] tensors."""
-    if dsts[0].device.type == "cpu":
+    name = "cc_filter"
+    dev = one_device(name, (*dsts, luma, *ctb_sets, *cf_tabs, edges))
+    if dev.type == "cpu":
         return cc_filter_ref(dsts, luma, ctb_sets, cf_tabs, cs_v, cs_h, hs,
                              vs, half, pix_max, edges, slab, luma_slab)
-    name = "cc_filter"
     n = len(dsts)
     _check(name, 1 <= n <= 2 and len(ctb_sets) == len(cf_tabs) == n,
            "one or two planes, each with its parameters")
@@ -371,20 +378,22 @@ def cc_filter(dsts, luma, ctb_sets, cf_tabs, cs_v, cs_h, hs, vs, half,
     ptrs = [p for z in range(n) for p in (
         s.at_row0(dsts[z]), outs[z].data_ptr(), ctb_sets[z].data_ptr(),
         cf_tabs[z].data_ptr())]
-    err = _build.lib().ffvvc_cc(
-        n, (ctypes.c_void_p * len(ptrs))(*ptrs), ls.at_row0(luma),
-        _edge_ptr(name, edges, ch, cw), s.args(Rc), ls.args(R), W, Wc, cw,
-        _log2(cs_v, "cs_v"), _log2(cs_h, "cs_h"), hs, vs, half, pix_max,
-        stream_of(luma))
+    with torch.cuda.device(dev):
+        err = _build.lib().ffvvc_cc(
+            n, (ctypes.c_void_p * len(ptrs))(*ptrs), ls.at_row0(luma),
+            _edge_ptr(name, edges, ch, cw), s.args(Rc), ls.args(R), W, Wc,
+            cw, _log2(cs_v, "cs_v"), _log2(cs_h, "cs_h"), hs, vs, half,
+            pix_max, stream_of(luma))
     _build.check(err, "ffvvc_cc")
-    _count(cc_filter, edges)
+    _count(cc_filter, edges, dev)
     return outs
 
 
-# kernel launches of each wrapper, and those of them that took edge words
-# (chip_smoke.py resets and reads them)
+# kernel launches of each wrapper, in all and per card, and those of them
+# that took edge words (chip_smoke.py resets and reads them)
 for _fn in (alf_filter_luma, alf_filter_chroma, cc_filter):
     _fn.launches = _fn.edge_launches = 0
+    _fn.launches_by_device = {}
 
 
 # ---- the per-stage entry point ----------------------------------------------

@@ -29,7 +29,8 @@ the weighted finals).
 
 On a mesh (`parallel/mesh.py`) the blocks of a put bucket split over the
 "tile" axis: each part goes to its device with the reference plane, and
-the outputs come back to the call's device in order (`sharded_puts`).
+the outputs come back to the call's device in order (`sharded_puts`; the
+plane's bytes each other device received: `sharded_ref_bytes`).
 """
 from __future__ import annotations
 
@@ -352,6 +353,9 @@ def _put_bucket(ref, prm, w, h, is_luma, bd, hf_idx, vf_idx, fclass, wrap,
 # own blocks), the outputs concatenate back.  The form of the reference's
 # per-CTU inter tasks running on every worker (vvc_thread.c:432-450).
 sharded_puts = 0      # diagnostic counter (tests assert engagement)
+# bytes of reference plane copied to each other device for a split bucket
+# ({str(device): bytes}; none when a tile's device is the plane's own)
+sharded_ref_bytes = {}
 
 
 def _put_sharded(ref, prm, mesh, *statics):
@@ -362,9 +366,15 @@ def _put_sharded(ref, prm, mesh, *statics):
     t = mesh.shape["tile"] if mesh is not None else 1
     if mesh is None or prm.shape[0] < t:
         return _put_bucket(ref, prm, *statics)
-    outs = [_put_bucket(ref.to(mesh.device(0, i)), part.to(mesh.device(0, i)),
-                        *statics).to(ref.device)
-            for i, part in enumerate(torch.tensor_split(prm, t))]
+    outs = []
+    for i, part in enumerate(torch.tensor_split(prm, t)):
+        there = ref.to(mesh.device(0, i))
+        if there is not ref:
+            key = str(there.device)
+            sharded_ref_bytes[key] = sharded_ref_bytes.get(key, 0) + \
+                ref.nbytes
+        outs.append(_put_bucket(there, part.to(there.device),
+                                *statics).to(ref.device))
     sharded_puts += 1
     return torch.cat(outs)
 

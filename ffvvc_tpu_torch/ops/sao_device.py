@@ -7,11 +7,12 @@ per plane one per-CTB table (`ctb_tables`): type, band position or edge
 class, offsets, and the kept samples of the CTB's border as four ranges,
 which cover the picture's border and the restore regions at slice and tile
 boundaries that filtering must not cross.  On CUDA tensors it launches
-`sao_kernel` (csrc/filters.cu) once for all planes; the kernel expands the
-per-CTB parameters itself.  On CPU tensors it runs `sao_apply_ref`, the same
-integer math in plain PyTorch.  Given a `Slab`, it filters a band of the
-picture's rows (the mesh's cut, `parallel/filters.py`) as a whole-picture
-launch filters them.
+`sao_kernel` (csrc/filters.cu) once for all planes, on their card and that
+card's current stream; the kernel expands the per-CTB parameters itself.
+Tensors of one call on different devices raise.  On CPU tensors it runs
+`sao_apply_ref`, the same integer math in plain PyTorch.  Given a `Slab`,
+it filters a band of the picture's rows (the mesh's cut,
+`parallel/filters.py`) as a whole-picture launch filters them.
 
 `sao_frame_device` is the per-stage entry point (`DecoderConfig.device_sao`,
 `ffvvc_tpu/ops/sao_device.py::sao_frame_device`): planes up, one call of
@@ -120,6 +121,24 @@ def _log2(n, what):
 def stream_of(t):
     """The raw handle of PyTorch's current stream on t's device."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def one_device(name, tensors):
+    """The device that all tensors of one launch lie on (None entries
+    skipped); ValueError when they span devices, before anything runs."""
+    devs = {t.device for t in tensors if t is not None}
+    if len(devs) != 1:
+        raise ValueError(f"{name}: the tensors of one launch must lie on "
+                         f"one device, not {sorted(map(str, devs))}")
+    return devs.pop()
+
+
+def count_launch(wrapper, dev):
+    """One launch of wrapper's kernel on CUDA device dev: its total and its
+    count on that card (`launches_by_device`, keyed by device index)."""
+    wrapper.launches += 1
+    by = wrapper.launches_by_device
+    by[dev.index] = by.get(dev.index, 0) + 1
 
 
 def _ranges(lo, hi):
@@ -306,11 +325,11 @@ def sao_apply(planes, prms, sizes, shift, pix_max, slabs=None):
     """SAO of up to three planes: one launch of the CUDA kernel on CUDA
     tensors, `sao_apply_ref` on CPU tensors.  Same arguments as
     `sao_apply_ref`; returns new int16 [rows, W] tensors."""
-    kind = planes[0].device.type
-    if kind == "cpu":
+    dev = one_device("sao_apply", (*planes, *prms))
+    if dev.type == "cpu":
         return sao_apply_ref(planes, prms, sizes, shift, pix_max, slabs)
-    if kind != "cuda":
-        raise ValueError(f"sao_apply: unsupported device {planes[0].device}")
+    if dev.type != "cuda":
+        raise ValueError(f"sao_apply: unsupported device {dev}")
     n = len(planes)
     if not 1 <= n <= 3 or len(prms) != n or len(sizes) != n:
         raise ValueError("sao_apply: one to three planes, each with its "
@@ -337,17 +356,20 @@ def sao_apply(planes, prms, sizes, shift, pix_max, slabs=None):
         ptrs += [sl.at_row0(x), out.data_ptr(), p.data_ptr()]
         dims += [W, ch, cw, _log2(cs_v, "cs_v"), _log2(cs_h, "cs_h")]
         rows += list(sl.args(R))
-    err = _build.lib().ffvvc_sao(
-        n, (ctypes.c_void_p * len(ptrs))(*ptrs),
-        (ctypes.c_int * len(dims))(*dims), (ctypes.c_int * len(rows))(*rows),
-        shift, pix_max, stream_of(planes[0]))
+    with torch.cuda.device(dev):
+        err = _build.lib().ffvvc_sao(
+            n, (ctypes.c_void_p * len(ptrs))(*ptrs),
+            (ctypes.c_int * len(dims))(*dims),
+            (ctypes.c_int * len(rows))(*rows), shift, pix_max,
+            stream_of(planes[0]))
     _build.check(err, "ffvvc_sao")
-    sao_apply.launches += 1
+    count_launch(sao_apply, dev)
     return outs
 
 
-# kernel launches (chip_smoke.py resets and reads it)
+# kernel launches, in all and per card (chip_smoke.py resets and reads them)
 sao_apply.launches = 0
+sao_apply.launches_by_device = {}
 
 
 def as_wire(plane):

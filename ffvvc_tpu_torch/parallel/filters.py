@@ -23,7 +23,10 @@ LMCS and deblocking are plain PyTorch, deblocking in the slab mode of
 `luma_math`/`chroma_math`.  Pictures whose slices or tiles forbid filtering
 across their boundaries take SAO's restore regions (in its table) and the
 edge-word variants of ALF and CC-ALF.  Planes go up once a drain and come
-down once; between the passes the slabs stay on their devices.
+down once, each slab straight to and from its own device (its own card on
+a CUDA mesh); between the passes the slabs stay there, every pass and
+kernel launch of a slab runs on its device with the parameters uploaded
+to it (`_OnDevice`), and only halos move between devices.
 
 A frame's planes are cut at the same picture rows: chroma into t slabs of
 ceil(Hc / t) rows (at least the widest halo, as the JAX package pads its
@@ -480,5 +483,4 @@ class MeshFilterQueue:
         for e, ps in zip(q, planes):
             for c in range(nc):
                 fb = e["fb"].planes[c]
-                fb[:] = join_rows(ps[c], fb.shape[0],
-                                  ps[c][0].device).cpu().numpy()
+                fb[:] = join_rows(ps[c], fb.shape[0], "cpu").numpy()

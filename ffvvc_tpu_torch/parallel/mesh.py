@@ -10,11 +10,16 @@ Port of `ffvvc_tpu/parallel/mesh.py`.  Axes:
 
 The JAX package runs shard_map programs over a jax.sharding.Mesh and moves
 its halos with jax.lax.ppermute.  Here the mesh is one process's array of
-torch devices and nothing else: a slab is a tensor on its own device, and
-the boundary rows of the slabs above and below move to it as explicit
-copies (`exchange_row_halo`).  On one card every entry is the same device
-(NCCL will not put two ranks on one GPU, and the decoder is one process);
-the tests use "cpu".
+torch devices and nothing else: a slab is a tensor on its own device, each
+pass and kernel launch runs on that device, and the boundary rows of the
+slabs above and below move to it as explicit copies (`exchange_row_halo`),
+device to device between cards.  PyTorch orders such a copy after the
+current streams of both cards, and every launch runs on its card's current
+stream, so no event is needed.  As the JAX mesh takes one chip a position,
+a CUDA mesh takes one card a position: `cuda:0` .. `cuda:g*t-1` of the
+visible cards, gop-major, or an explicit list.  A list may repeat a device
+(the form of the JAX tests' virtual devices, which torch lacks): one card
+repeated runs the mesh on that card, "cpu" repeated runs it in the tests.
 
 Of the JAX module, `make_mesh` and `build_sharded_residual_step` are not
 ported (nothing calls them); `make_mesh_exact`, which the JAX package keeps
@@ -41,12 +46,16 @@ class Mesh:
 
 def make_mesh_exact(shape, devices=None, device="cuda") -> Mesh:
     """("gop", "tile") mesh with exactly the requested shape: the first
-    g * t of `devices` (gop-major), or g * t entries of `device`.  The
-    kernel launchers use the current CUDA device's stream, so a list of
-    several cards does not run yet (the decoder passes `device` alone)."""
+    g * t of `devices`, gop-major.  Without a list a CUDA `device` takes
+    the visible cards, `cuda:0` first, as the JAX function takes
+    jax.devices(); any other device is repeated g * t times.  Fewer
+    devices than positions raise."""
     g, t = shape
     if devices is None:
-        devices = [device] * (g * t)
+        if torch.device(device).type == "cuda":
+            devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+        else:
+            devices = [device] * (g * t)
     if g * t > len(devices):
         raise ValueError(f"mesh_shape {shape} needs {g * t} devices, "
                          f"have {len(devices)}")

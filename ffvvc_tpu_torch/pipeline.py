@@ -190,8 +190,8 @@ _DEVICE_TOGGLES = ("device_pipeline", "device_sao", "device_alf",
 def _start_method(config: DecoderConfig) -> str:
     """"spawn" when the config puts a stage on a CUDA device (a child forked
     after its parent initialised CUDA cannot use CUDA), else "fork".  The
-    decoder's own predicates: a mesh runs its passes on `config.device`
-    whatever the backend, a device toggle only under backend "cuda"."""
+    decoder's own predicates: a mesh runs on devices of `config.device`'s
+    type whatever the backend, a device toggle only under backend "cuda"."""
     import torch
     if torch.device(config.device).type != "cuda":
         return "fork"

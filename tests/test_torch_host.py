@@ -64,10 +64,10 @@ DIFFER = {
     "native/sao.py": ("ffvvc_tpu/native/sao.py", 16),
     "native/alf.py": ("ffvvc_tpu/native/alf.py", 16),
     "cabac/native.py": ("ffvvc_tpu/cabac/native.py", 22),
-    # the reference's fields plus `device`, backend
+    # the reference's fields plus `device` and `mesh_devices`, backend
     # "cuda", and what device_sao, device_alf and device_intra do in the
-    # port (56 lines)
-    "config.py": ("ffvvc_tpu/config.py", 56),
+    # port (61 lines)
+    "config.py": ("ffvvc_tpu/config.py", 61),
     # the reference's _decode_frame, mesh included, with backend "cuda" and
     # the torch device passed to every device stage (70 lines)
     "decoder.py": ("ffvvc_tpu/decoder.py", 70),
