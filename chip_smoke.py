@@ -154,6 +154,7 @@ from ffvvc_tpu_torch.ops.kernel_inputs import (  # noqa: E402
 from ffvvc_tpu_torch.ops.sao_device import Slab  # noqa: E402
 from ffvvc_tpu_torch.parallel import filters as PF  # noqa: E402
 from ffvvc_tpu_torch.pipeline import _decode_segment  # noqa: E402
+from ffvvc_tpu_torch import trace  # noqa: E402
 
 W, H, CTB, BD, NFRAMES, QP = 1920, 1080, 32, 10, 2, 30
 SEED = 0
@@ -616,8 +617,8 @@ def decode(label, path, stream, ref_md5, smi):
         if (v > 0) != want[k]:
             raise AssertionError(f"{tag} kernel {k} launched {v} times in "
                                  "the decode")
-    # where the time goes: one more decode with the frame pipeline off so
-    # the stage clock is not shared between the parse and pixel threads
+    # where the time goes: one more decode with the frame pipeline off, its
+    # spans summed by name (ffvvc_tpu_torch/trace.py)
     fd.reset_stats()
     dec = VVCDecoder(DecoderConfig(device="cuda", pipeline_frames=False,
                                    profile=True, **PATHS[path]))
@@ -643,10 +644,6 @@ def decode(label, path, stream, ref_md5, smi):
                       f"{us / NFRAMES / 1e3:.4f} ms" for us, c, k in ours))
     stages = {k: round(v / NFRAMES * 1e3, 3)
               for k, v in dec.stage_times.items()}
-    if path == "fused":
-        stages["fused.build"] = round(fd.stats["build_s"] / NFRAMES * 1e3, 3)
-        stages["fused.device"] = round(fd.stats["device_s"] / NFRAMES * 1e3,
-                                       3)
     print(f"{tag} serial decode {NFRAMES / dt:.3f} fps; ms per frame by "
           f"stage: {json.dumps(stages)} [{smi}]")
     return launches
@@ -989,18 +986,26 @@ def mc_decode(tag, stream, ref_md5, host_mc, smi, n_inter, late_pixels=0.0,
               **toggles):
     """One decode through device_mc on DEVICE, checked against the host
     decode's md5; prints what the device MC did per inter frame, beside
-    `host_mc`, the ms the host C MC takes for one.  Returns the
-    mc_device.stats of the decode."""
+    `host_mc`, the ms the host C MC takes for one, and its phases' ms from
+    the decode's spans.  Returns the mc_device.stats of the decode."""
     from ffvvc_tpu_torch import DecoderConfig, VVCDecoder
     mc_device.reset_stats()
     fd.reset_stats()
-    dec = VVCDecoder(DecoderConfig(device=DEVICE, device_mc=True, **toggles))
+    dec = VVCDecoder(DecoderConfig(device=DEVICE, device_mc=True,
+                                   profile=True, **toggles))
     if late_pixels:
         dec._pix_exec = LatePixels(late_pixels)
+    trace.clear()
     with McLog() as log:
         t0 = time.monotonic()
         frames = dec.decode(stream)
         dt = time.monotonic() - t0
+    phases = {}             # decode sequence number -> {phase: seconds}
+    for sp in trace.spans():
+        if sp.name.startswith("mc."):
+            ph = phases.setdefault(sp.seq, {})
+            ph[sp.name[3:]] = ph.get(sp.name[3:], 0.0) + sp.wall_ns * 1e-9
+    trace.clear()
     if late_pixels:
         dec._pix_exec.shutdown()
     md5, n = yuv_md5(frames)
@@ -1016,10 +1021,9 @@ def mc_decode(tag, stream, ref_md5, host_mc, smi, n_inter, late_pixels=0.0,
     if len(per_frame) != n_inter:
         raise AssertionError(f"{tag} device MC ran on {len(per_frame)} of "
                              f"{n_inter} inter frames")
-    for i, (calls, secs, d) in enumerate(per_frame):
-        shares = {k[:-2]: round(d[k] * 1e3, 1) for k in (
-            "collect_s", "dmvr_s", "expand_s", "put_s", "finals_s",
-            "writeback_s")}
+    for i, ((calls, secs, d), seq) in enumerate(zip(per_frame,
+                                                    sorted(phases))):
+        shares = {k: round(v * 1e3, 1) for k, v in phases[seq].items()}
         print(f"{tag} inter frame {i}: {calls} frame_device_mc calls, "
               f"{d['descriptors']} descriptors, {d['put_buckets']} put "
               f"buckets of {d['put_blocks']} blocks, {d['bilin_buckets']} "
@@ -1047,7 +1051,7 @@ def inter_b(smi):
     ref_md5, n = yuv_md5(dec.decode(stream))
     dt = time.monotonic() - t0
     n_inter = n - 1
-    host_mc = dec.stage_times["inter"] / n_inter * 1e3
+    host_mc = dec.stage_times["mc.host"] / n_inter * 1e3
     print(f"{tag} host decode, serial: {n} frames in {dt:.3f} s, md5 "
           f"{ref_md5}; host C MC {host_mc:.1f} ms per inter frame on "
           f"{os.cpu_count()} cores; ms per frame by stage: "
@@ -1123,10 +1127,11 @@ def inter_b(smi):
         dec.decode(stream)
     st = mc_device.stats
     print(f"{tag}[whole] serial decode: MC stage "
-          f"{dec.stage_times['inter'] / n_inter * 1e3:.1f} ms per inter "
+          f"{dec.stage_times['mc'] / n_inter * 1e3:.1f} ms per inter "
           f"frame (host C MC {host_mc:.1f} ms); ms per inter frame: "
-          + json.dumps({k[:-2]: round(v / n_inter * 1e3, 1)
-                        for k, v in st.items() if k.endswith("_s")})
+          + json.dumps({k[3:]: round(v / n_inter * 1e3, 1)
+                        for k, v in dec.stage_times.items()
+                        if k.startswith("mc.")})
           + f"; {st['up_bytes'] / n_inter / 1e6:.3f} MB up, "
           f"{st['down_bytes'] / n_inter / 1e6:.3f} MB down, "
           f"{st['launches'] / n_inter:.0f} batched calls per inter frame "

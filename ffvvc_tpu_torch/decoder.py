@@ -39,6 +39,7 @@ from .cabac.native import NativeCabacDecoder, load_lib
 from .ctu import CtuCoder, FrameTabs
 from .recon import FrameBuffer, Reconstructor
 from .config import DecoderConfig
+from . import trace
 
 
 # frame flags (reference VVC_FRAME_FLAG_*, vvc_refs.c)
@@ -91,11 +92,13 @@ class DecodedFrame:
             return
         cond = self._row_cond
         if cond is None:
-            fut.result()
+            trace.wait("wait.refs", fut)
             return
         with cond:
-            while self._rows_final < y:
-                cond.wait()
+            if self._rows_final < y:
+                with trace.span("wait.refs"):
+                    while self._rows_final < y:
+                        cond.wait()
 
     def recycle(self):
         """Return the frame's planes/tabs to the per-process pool.  Callers
@@ -168,8 +171,11 @@ class VVCDecoder:
         self.no_output_before_recovery = 0
         self.gdr_recovery_point_poc = 0
         self.gdr_recovered = True
-        # per-stage wall time (seconds) accumulated when config.profile
+        # seconds by span name (trace.py) of this decoder's frames, and
+        # the tag of its latest frame
         self.stage_times = {}
+        self._trace = trace.Frame(None, None, self.stage_times,
+                                  self.config.profile)
         # frame pipeline: pixel stages of queued frames run on this worker
         # while later frames parse (config.pipeline_frames/pipeline_depth)
         self._pix_exec = None
@@ -188,6 +194,10 @@ class VVCDecoder:
         all frames are drained in output order; with flush=False (streaming:
         one access unit per call, see bitstream/au.py) frames are released
         per DPB bumping rules and the tail is drained by flush()."""
+        with trace.decoding(self._trace):
+            return self._decode(data, flush)
+
+    def _decode(self, data, flush):
         nals = split_annexb(data)
         # group into access units by PH/first-slice boundaries
         frame_nals = []
@@ -279,7 +289,8 @@ class VVCDecoder:
         if self._mesh_q is not None:
             # frames reference live buffers; deferred mesh filters must
             # land before the caller reads pixels
-            self._mesh_q.drain()
+            with trace.span("wait.pixels"):
+                self._mesh_q.drain()
         self._check_pending_dph()
         if flush:
             self._release_dpb()
@@ -287,12 +298,14 @@ class VVCDecoder:
 
     def flush(self):
         """Drain remaining reordered frames (end of stream)."""
-        self._join_pixels()
-        out = self._output_frames(flush=True)
-        if self._mesh_q is not None:
-            self._mesh_q.drain()
-        self._check_pending_dph()
-        self._release_dpb()
+        with trace.decoding(self._trace):
+            self._join_pixels()
+            out = self._output_frames(flush=True)
+            if self._mesh_q is not None:
+                with trace.span("wait.pixels"):
+                    self._mesh_q.drain()
+            self._check_pending_dph()
+            self._release_dpb()
         return out
 
     def _check_pending_dph(self):
@@ -441,21 +454,6 @@ class VVCDecoder:
         return rpl_pair, collocated
 
     def _decode_frame(self, ph, slices):
-        # per-stage timing (config.profile; reference VVC_THREAD_DEBUG
-        # task-trace analogue, vvc_thread.c:568-603)
-        if self.config.profile:
-            import time as _time
-            _t = [_time.monotonic()]
-
-            def _stage(name):
-                now = _time.monotonic()
-                self.stage_times[name] = self.stage_times.get(name, 0.0) + \
-                    (now - _t[0])
-                _t[0] = now
-        else:
-            def _stage(name):
-                pass
-        self._stage = _stage
         nal0, sh0, _ = slices[0]
         pps_r = self.ps.pps[ph.ph_pic_parameter_set_id]
         sps_r = self.ps.sps[pps_r.pps_seq_parameter_set_id]
@@ -472,6 +470,10 @@ class VVCDecoder:
                 f.flags &= ~(FLAG_SHORT_REF | FLAG_LONG_REF)
                 self._unref_check(f)
         self.prev_poc = poc
+        # this thread's spans are this frame's (trace.py; the reference's
+        # VVC_THREAD_DEBUG task trace, vvc_thread.c:568-603)
+        tag = self._trace = self._trace.next(poc)
+        trace.enter(tag)
         # GDR recovery tracking (decode_recovery_flag/poc, vvc_ps.c:745-761)
         nt = nal0.nal_unit_type
         if is_idr(nt):
@@ -588,8 +590,6 @@ class VVCDecoder:
                 if f is not frame:
                     self._unref_check(f)
 
-        _stage("parse")
-
         # inter MC needs its REFERENCE frames' filtered pixels — and only
         # those: the host analogue of the reference's per-frame progress
         # wait (schedule_inter, vvc_thread.c:281-296).  Frames this frame
@@ -606,12 +606,14 @@ class VVCDecoder:
                 # references; non-referenced frames stay queued so the
                 # gop axis stays >1-deep on inter content (the collective
                 # form of the row-progress wait, vvc_thread.c:281-296)
-                self._join_pixels()
-                self._mesh_q.drain(needed={rf.buffer for rf in ref_frames})
+                self._join_pixels("wait.refs")
+                with trace.span("wait.refs"):
+                    self._mesh_q.drain(
+                        needed={rf.buffer for rf in ref_frames})
         else:
             if is_inter_frame:
                 if os.environ.get("FFVVC_RPL_GATE", "1") == "0":  # A/B toggle
-                    self._join_pixels()
+                    self._join_pixels("wait.refs")
                 all_native = all(not hasattr(ip, "c")
                                  for ip, _ in inter_jobs)
                 if self.config.row_progress and all_native:
@@ -627,7 +629,7 @@ class VVCDecoder:
                     for rf in ref_frames:
                         fut = rf._pix_future
                         if fut is not None:
-                            fut.result()
+                            trace.wait("wait.refs", fut)
             # with row gating the reference frames stay in flight: keep
             # one extra pixel job queued so their rolling filters overlap
             # this frame's MC (memory still bounded by pipeline_depth)
@@ -640,7 +642,6 @@ class VVCDecoder:
             from .ops.itx import frame_device_residuals
             frame_device_residuals(recon_jobs, tabs, sps.bit_depth,
                                    self.config.device)
-        _stage("itx")
         # inter MC pass (reference INTER task stage precedes RECON,
         # vvc_thread.c:41-51)
         native_mc = []
@@ -684,15 +685,16 @@ class VVCDecoder:
                                     device=self.config.device,
                                     mesh=self._mc_mesh())
                     continue
-                i = 0
-                while i < len(items):
-                    ip = items[i][0]
-                    j = i
-                    while j < len(items) and items[j][0] is ip:
-                        j += 1
-                    ip.predict_inter_ctus(
-                        [(rs, rx, r2) for _, rs, rx, r2 in items[i:j]])
-                    i = j
+                with trace.span("mc.host", row=ry):
+                    i = 0
+                    while i < len(items):
+                        ip = items[i][0]
+                        j = i
+                        while j < len(items) and items[j][0] is ip:
+                            j += 1
+                        ip.predict_inter_ctus(
+                            [(rs, rx, r2) for _, rs, rx, r2 in items[i:j]])
+                        i = j
             native_mc = []
         if native_mc and dev_mc:
             # batched device MC for simple regular blocks; the same C call
@@ -724,10 +726,10 @@ class VVCDecoder:
                         [(rs, rx, ry) for _, rs, rx, ry in native_mc[i:j]])
                     i = j
 
-            run_parallel(nt, [
-                (lambda lo=lo, hi=hi: mc_chunk(lo, hi))
-                for lo, hi in split_ranges(len(native_mc), nt)])
-        _stage("inter")
+            with trace.span("mc.host"):
+                run_parallel(nt, [
+                    (lambda lo=lo, hi=hi: mc_chunk(lo, hi))
+                    for lo, hi in split_ranges(len(native_mc), nt)])
 
         dph, self._pending_dph = self._pending_dph, None
 
@@ -761,7 +763,6 @@ class VVCDecoder:
                 if self._pixel_stages_rows(frame, sps, pps, tabs, fb,
                                            recon_jobs, lmcs, sh_list,
                                            alf_list):
-                    _stage("rows")
                     if dph is not None and cfg.verify_picture_hash:
                         self._check_picture_hash(frame, dph)
                     for rec, _ in recon_jobs:
@@ -799,7 +800,6 @@ class VVCDecoder:
                     else:
                         for rs, rx, ry in ctus:
                             rec.reconstruct_ctu(rs, rx, ry)
-            _stage("recon")
             if fused:
                 from .ops.fused_device import fused_frame_filters
                 if fused_frame_filters(sps, pps, tabs, fb, sh_list,
@@ -807,7 +807,6 @@ class VVCDecoder:
                                        frame.slice_rpls,
                                        res_planes=defer_res,
                                        device=cfg.device):
-                    _stage("fused")
                     if dph is not None and cfg.verify_picture_hash:
                         self._check_picture_hash(frame, dph)
                     for rec, _ in recon_jobs:
@@ -845,16 +844,16 @@ class VVCDecoder:
                                       cfg.device)
                 else:
                     ctb = sps.ctb_size_y
-                    for rec, ctus in recon_jobs:
-                        if not rec.lmcs_used:
-                            continue
-                        for rs, rx, ry in ctus:
-                            x0, y0 = rx * ctb, ry * ctb
-                            x1 = min(x0 + ctb, pps.width)
-                            y1 = min(y0 + ctb, pps.height)
-                            blk = fb.planes[0][y0:y1, x0:x1]
-                            blk[:] = lmcs.inv_lut[blk]
-            _stage("lmcs")
+                    with trace.span("lmcs"):
+                        for rec, ctus in recon_jobs:
+                            if not rec.lmcs_used:
+                                continue
+                            for rs, rx, ry in ctus:
+                                x0, y0 = rx * ctb, ry * ctb
+                                x1 = min(x0 + ctb, pps.width)
+                                y1 = min(y0 + ctb, pps.height)
+                                blk = fb.planes[0][y0:y1, x0:x1]
+                                blk[:] = lmcs.inv_lut[blk]
             # in-loop filters (whole-frame passes per spec 8.8)
             defer_deblock = mesh is not None and \
                 not getattr(sps, "num_ladf_intervals", 0)
@@ -870,8 +869,8 @@ class VVCDecoder:
                 db = Deblocker(sps, pps, tabs, fb)
                 db.slice_rpls = frame.slice_rpls
                 db.n_threads = resolve(self.config.stage_threads)
-                db.deblock_frame()
-            _stage("deblock")
+                with trace.span("deblock"):
+                    db.deblock_frame()
             if mesh is not None:
                 # mesh-sharded residual-add/LMCS/deblock/SAO/ALF/CC-ALF
                 # (parallel/filters.py): deferred until a reference
@@ -892,7 +891,8 @@ class VVCDecoder:
                     from .threads import resolve
                     sf = SaoFilter(sps, pps, tabs, fb)
                     sf.n_threads = resolve(self.config.stage_threads)
-                    sf.sao_frame()
+                    with trace.span("sao"):
+                        sf.sao_frame()
                 if alf_list is not None:
                     if self.config.backend == "cuda" and \
                             self.config.device_alf:
@@ -901,17 +901,17 @@ class VVCDecoder:
                                          alf_list, cfg.device)
                     else:
                         done = False
-                        if self.config.native_alf:
-                            from .native.alf import alf_frame_native
-                            from .threads import resolve
-                            done = alf_frame_native(
-                                sps, pps, tabs, fb, sh_list, alf_list,
-                                resolve(self.config.stage_threads))
-                        if not done:
-                            from .alf import AlfFilter
-                            AlfFilter(sps, pps, tabs, fb, sh_list,
-                                      alf_list).alf_frame()
-            _stage("sao_alf")
+                        with trace.span("alf"):
+                            if self.config.native_alf:
+                                from .native.alf import alf_frame_native
+                                from .threads import resolve
+                                done = alf_frame_native(
+                                    sps, pps, tabs, fb, sh_list, alf_list,
+                                    resolve(self.config.stage_threads))
+                            if not done:
+                                from .alf import AlfFilter
+                                AlfFilter(sps, pps, tabs, fb, sh_list,
+                                          alf_list).alf_frame()
             if dph is not None and self.config.verify_picture_hash and \
                     mesh is None:
                 self._check_picture_hash(frame, dph)
@@ -931,14 +931,16 @@ class VVCDecoder:
                     max_workers=1, thread_name_prefix="ffvvc-pixels")
             import threading
             frame._row_cond = threading.Condition()
+            submitted = trace.now()
 
             def pixel_stages_published():
-                try:
-                    pixel_stages()
-                finally:
-                    # wake any row waiters unconditionally (whole-frame
-                    # fallbacks and error paths publish "all rows")
-                    frame.publish_rows(1 << 30)
+                with trace.job(tag, submitted):
+                    try:
+                        pixel_stages()
+                    finally:
+                        # wake any row waiters unconditionally (whole-frame
+                        # fallbacks and error paths publish "all rows")
+                        frame.publish_rows(1 << 30)
 
             fut = self._pix_exec.submit(pixel_stages_published)
             frame._pix_future = fut
@@ -951,6 +953,7 @@ class VVCDecoder:
         """Mesh for sharded device-MC puts (None on a single device)."""
         return self._mesh_q.mesh if self._mesh_q is not None else None
 
+    @trace.traced("mc.row_needs")
     def _mc_row_needs(self, tabs, sps, pps):
         """Per-CTU-row max referenced luma row (exclusive) for inter MC:
         the vectorized analogue of the reference's per-CU max-ref-y
@@ -994,6 +997,7 @@ class VVCDecoder:
                     int(reach[r * ctb4:(r + 1) * ctb4].max(initial=0)))
                 for r in range(pps.ctb_height)]
 
+    @trace.traced("rows")
     def _pixel_stages_rows(self, frame, sps, pps, tabs, fb, recon_jobs,
                            lmcs, sh_list, alf_list):
         """Row-granular pixel pipeline: recon/LMCS/deblock-V/deblock-H/
@@ -1147,16 +1151,16 @@ class VVCDecoder:
                     f"decoded picture hash mismatch (poc={frame.poc}, "
                     f"component={c}): {got.hex()} != {want.hex()}")
 
-    def _join_pixels(self):
+    def _join_pixels(self, why="wait.pixels"):
         """Wait for every queued pixel-stage job (frame pipeline)."""
         futs, self._pix_futures = self._pix_futures, []
         for fut in futs:
-            fut.result()
+            trace.wait(why, fut)
 
     def _trim_pixels(self, depth):
         """Block until at most `depth` pixel-stage jobs remain queued."""
         while len(self._pix_futures) > depth:
-            self._pix_futures.pop(0).result()
+            trace.wait("wait.pixels", self._pix_futures.pop(0))
 
     def _entry_point_offsets(self, nal, sh_r, sh_end_bits):
         """Byte ranges of each entry point within nal.rbsp (EPB-adjusted;
@@ -1180,6 +1184,7 @@ class VVCDecoder:
         ranges.append((pos, len(nal.rbsp)))
         return ranges
 
+    @trace.traced("parse.slice")
     def _parse_slice(self, nal, sh, sh_end_bits, tabs, fb, slice_idx,
                      rpl=None, poc=0, collocated=None,
                      native_recon_ok=False):

@@ -15,6 +15,7 @@ import os
 
 import numpy as np
 
+from .. import trace
 from ._build import load_native
 
 
@@ -428,6 +429,7 @@ class NativeRecon:
             raise ValueError(f"native inter_ctus_dev failed (err={err})")
         return desc[:int(nd[0])]
 
+    @trace.traced("recon")
     def reconstruct_ctus(self, ctus):
         rxs, rys, rss, n_cus, cu_ps, tu_ps, tb_ps, co_ps = \
             self._batch_arrays(ctus, True)
@@ -461,6 +463,7 @@ class NativeRecon:
             raise ValueError(f"native plan_intra_ctus failed (err={-n})")
         return int(n)
 
+    @trace.traced("recon")
     def residual_ctus(self, ctus, res_planes):
         """Device-intra support: run the record walk in residual-only mode,
         writing raw per-TB residuals into res_planes (list of int32 arrays,

@@ -40,6 +40,7 @@ import torch
 from ..alf import (ALF_VB_POS_ABOVE_CHROMA, ALF_VB_POS_ABOVE_LUMA, AlfFilter,
                    _TRANSPOSE_IDX)
 
+from .. import trace
 from . import _build
 from .sao_device import (MIN_CTB, Slab, _log2, as_wire, count_launch,
                          ctb_rows, one_device, stream_of)
@@ -411,6 +412,7 @@ def ctb_edges(af):
     return words
 
 
+@trace.traced("alf")
 def alf_frame_device(sps, pps, tabs, fb, sh_list, alf_list, device="cuda"):
     """Device ALF + CC-ALF over all planes of a frame, in place on
     fb.planes.  The planes go up as 16-bit samples with the per-CTB sets,

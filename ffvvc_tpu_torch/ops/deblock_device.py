@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from ..deblock import Deblocker
 
 # padded (coef, tc_weight) rows indexed by (ml - 3) // 2  ->  ml in {3,5,7}
@@ -461,6 +462,7 @@ def chroma_math(plane, px, py, tc, beta, mlp, mlq, size, vertical: bool,
     return _scatter_add(plane, srows, scols, delta, row0, own_h)
 
 
+@trace.traced("deblock")
 def deblock_frame_device(sps, pps, tabs, fb, slice_rpls, device="cuda"):
     """Whole-frame device deblock (both directions, all planes), in place
     on fb.planes.  Returns False when the stream needs the host path

@@ -32,6 +32,7 @@ import time
 import numpy as np
 import torch
 
+from .. import trace
 from ..alf import ALF_BORDER_LUMA, ALF_VB_POS_ABOVE_LUMA, _ARG_VAR
 from ..sao import SaoFilter
 from . import data as D
@@ -473,6 +474,33 @@ def fused_frame_filters(sps, pps, tabs, fb, sh_list, alf_list, lmcs,
     if not eligible(sps, pps, tabs):
         return False
     t0 = time.perf_counter()
+    built = build_params(sps, pps, tabs, fb, sh_list, alf_list, lmcs,
+                         recon_jobs, slice_rpls, res_planes)
+    if built is None:
+        return False        # missing APS etc: host fallback handles it
+    meta, arrs = built
+    t1 = time.perf_counter()
+    with trace.span("fused.upload"):
+        arrs = to_device(meta, arrs, device)
+    with trace.span("fused.chain"):
+        out = chain(meta, arrs)
+    with trace.span("fused.download"):
+        res = [p.cpu().numpy() for p in out]  # synchronises with the device
+    stats["build_s"] += t1 - t0
+    stats["device_s"] += time.perf_counter() - t1
+    nc = meta["nc"]
+    for c in range(nc):
+        stats["down_bytes"] += res[c].nbytes
+        fb.planes[c][:] = res[c]
+    stats["frames"] += 1
+    return True
+
+
+@trace.traced("fused.build")
+def build_params(sps, pps, tabs, fb, sh_list, alf_list, lmcs, recon_jobs,
+                 slice_rpls, res_planes):
+    """The chain's host half: its metadata and the host arrays staged for
+    upload, or None where an APS the frame names is missing."""
     nc = 3 if sps.chroma_format_idc else 1
     meta = {"bd": sps.bit_depth, "cs": sps.ctb_size_y, "nc": nc,
             "hs": sps.hshift[1] if nc == 3 else 0,
@@ -502,16 +530,18 @@ def fused_frame_filters(sps, pps, tabs, fb, sh_list, alf_list, lmcs,
             arrs["lmcs_lut"] = _up(np.asarray(lmcs.inv_lut, np.int32))
             arrs["lmcs_mask"] = _up(mask)
     # --- deblock segments ---
-    for d, vertical in ((0, True), (1, False)):
-        ras = rasterize_deblock(sps, pps, tabs, fb, slice_rpls, vertical)
-        for c in range(nc):
-            segs = ras.luma_segs if c == 0 else \
-                (ras.chroma_segs.get(c) or [])
-            meta[f"db{d}c{c}"] = bool(segs)
-            if segs:
-                arrs[f"db{d}c{c}"] = _up(seg_array(segs))
+    with trace.span("fused.deblock_raster"):
+        for d, vertical in ((0, True), (1, False)):
+            ras = rasterize_deblock(sps, pps, tabs, fb, slice_rpls, vertical)
+            for c in range(nc):
+                segs = ras.luma_segs if c == 0 else \
+                    (ras.chroma_segs.get(c) or [])
+                meta[f"db{d}c{c}"] = bool(segs)
+                if segs:
+                    arrs[f"db{d}c{c}"] = _up(seg_array(segs))
     # --- SAO ---
-    tables = ctb_tables(SaoFilter(sps, pps, tabs, fb), nc)
+    with trace.span("fused.sao_tables"):
+        tables = ctb_tables(SaoFilter(sps, pps, tabs, fb), nc)
     for c in range(nc):
         meta[f"sao{c}"] = tables[c] is not None
         if tables[c] is not None:
@@ -521,29 +551,21 @@ def fused_frame_filters(sps, pps, tabs, fb, sh_list, alf_list, lmcs,
         meta[key] = False
     if sps.r.sps_alf_enabled_flag and sh_list is not None and \
             (tabs.alf_ctb_flag.any() or tabs.alf_cc_idc.any()):
-        try:
-            ap = _alf_ctb_params(sps, pps, tabs, sh_list, alf_list)
-        except (KeyError, AttributeError, IndexError):
-            return False    # missing APS etc: host fallback handles it
-        for k, v in ap.items():
-            arrs[k] = _up(v)
-        if "alf0_ctb_set" in ap:
-            meta["alf0"] = True
-            r0, r3, s1, e3, ac = _cls_arrays(pps.height, sps.ctb_size_y)
-            arrs["cls_r0"] = _up(r0)
-            arrs["cls_r3"] = _up(r3)
-            arrs["blk_start1"] = _up(s1)
-            arrs["blk_end3"] = _up(e3)
-            arrs["blk_ac"] = _up(ac)
+        with trace.span("fused.alf_params"):
+            try:
+                ap = _alf_ctb_params(sps, pps, tabs, sh_list, alf_list)
+            except (KeyError, AttributeError, IndexError):
+                return None
+            for k, v in ap.items():
+                arrs[k] = _up(v)
+            if "alf0_ctb_set" in ap:
+                meta["alf0"] = True
+                r0, r3, s1, e3, ac = _cls_arrays(pps.height, sps.ctb_size_y)
+                arrs["cls_r0"] = _up(r0)
+                arrs["cls_r3"] = _up(r3)
+                arrs["blk_start1"] = _up(s1)
+                arrs["blk_end3"] = _up(e3)
+                arrs["blk_ac"] = _up(ac)
         for key in ("alf1", "alf2", "cc1", "cc2"):
             meta[key] = f"{key}_set" in ap
-    t1 = time.perf_counter()
-    out = chain(meta, to_device(meta, arrs, device))
-    res = [p.cpu().numpy() for p in out]    # synchronises with the device
-    stats["build_s"] += t1 - t0
-    stats["device_s"] += time.perf_counter() - t1
-    for c in range(nc):
-        stats["down_bytes"] += res[c].nbytes
-        fb.planes[c][:] = res[c]
-    stats["frames"] += 1
-    return True
+    return meta, arrs

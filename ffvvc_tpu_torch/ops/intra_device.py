@@ -50,6 +50,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import trace
 from . import data as D
 from . import resolve_device
 from ..ctu import INTRA_PLANAR, INTRA_DC, INTRA_HORZ, INTRA_VERT, \
@@ -802,6 +803,7 @@ def _geo_rows(Ds, isc, Hc, Wc):
     return geo
 
 
+@trace.traced("intra")
 def frame_device_intra(recon_jobs, sps, pps, tabs, fb, device="cuda"):
     """Intra reconstruction of an all-intra frame on `device`.
 

@@ -26,6 +26,7 @@ import os
 import numpy as np
 import torch
 
+from .. import trace
 from . import data as D
 
 DCT2, DST7, DCT8 = 0, 1, 2
@@ -156,6 +157,7 @@ def scatter_residual(frame, residuals, xs, ys, w, h, pixel_max):
     return out.clamp(0, pixel_max)
 
 
+@trace.traced("itx")
 def frame_device_residuals(recon_jobs, tabs, bit_depth: int, device="cuda"):
     """Batched inverse transform of every TB in a parsed frame.
 

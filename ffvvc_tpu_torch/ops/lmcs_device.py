@@ -13,10 +13,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from .fused_device import lmcs_apply
 from .sao_device import as_wire
 
 
+@trace.traced("lmcs")
 def lmcs_frame_device(sps, pps, fb, lmcs, recon_jobs, device="cuda"):
     """Apply the LMCS inverse mapping to the luma plane on `device`, in
     place on fb.planes[0].  recon_jobs carry the per-slice lmcs_used gates

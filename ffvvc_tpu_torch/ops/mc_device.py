@@ -35,11 +35,11 @@ plane's bytes each other device received: `sharded_ref_bytes`).
 from __future__ import annotations
 
 import functools
-import time
 
 import numpy as np
 import torch
 
+from .. import trace
 from .inter_device import _bdof, _dmvr_refine
 from .sao_device import as_wire
 
@@ -47,21 +47,17 @@ I32, I64 = torch.int32, torch.int64
 
 # What the calls since reset_stats() did.  `launches` counts batched device
 # calls (one put, prefetch, refine, PROF or finals bucket each), not CUDA
-# kernels.  The *_s are host-clock seconds with no synchronisation of their
-# own: dmvr_s and finals_s end in a download and so include the wait for
-# the device, put_s is the time to queue the puts.
+# kernels.  Where the time goes is in the spans of `frame_device_mc`
+# (trace.py: `mc` and its phases `mc.collect` ... `mc.writeback`).
 _COUNTS = ("calls", "descriptors", "put_buckets", "put_blocks",
            "bilin_buckets", "dmvr_subblocks", "bdof_blocks", "prof_blocks",
            "gpm_blocks", "weighted_blocks", "finals_buckets", "launches",
            "up_bytes", "down_bytes")
-_SECONDS = ("collect_s", "dmvr_s", "expand_s", "put_s", "finals_s",
-            "writeback_s")
 stats = {}
 
 
 def reset_stats():
     stats.update(dict.fromkeys(_COUNTS, 0))
-    stats.update(dict.fromkeys(_SECONDS, 0.0))
     stats["put_class"] = [0, 0, 0, 0]     # put buckets: copy, h, v, hv
 
 
@@ -79,12 +75,6 @@ def _down(t):
     a = t.cpu().numpy()
     stats["down_bytes"] += a.nbytes
     return a
-
-
-def _tick(name, t0):
-    now = time.perf_counter()
-    stats[name] += now - t0
-    return now
 
 
 @functools.lru_cache()
@@ -515,10 +505,10 @@ def _dmvr_phase(D, rpls, bd, planes):
         stats["bilin_buckets"] += 1
         stats["launches"] += 1
     flat = _Flat(vals, lambda key: (key[1], key[2]))
-    out = {}
     by_size = {}
     for di, sby, sbx, sbw, sbh, mvs in subs:
         by_size.setdefault((sbw, sbh), []).append((di, sby, sbx, mvs))
+    refined = []
     for (sbw, sbh), items in by_size.items():
         t0 = flat.take([slots[(di, sby, sbx, 0)]
                         for di, sby, sbx, _ in items], dev)
@@ -527,8 +517,14 @@ def _dmvr_phase(D, rpls, bd, planes):
         dmv, skip = _dmvr_refine(t0, t1, sbw, sbh)
         stats["launches"] += 1
         stats["dmvr_subblocks"] += len(items)
-        dmv, skip = _down(dmv), _down(skip)
-        lim = 1 << 17
+        refined.append((items, dmv, skip))
+    # every size's refinement is queued before the first download waits
+    with trace.span("mc.download"):
+        refined = [(items, _down(dmv), _down(skip))
+                   for items, dmv, skip in refined]
+    out = {}
+    lim = 1 << 17
+    for items, dmv, skip in refined:
         for j, (di, sby, sbx, mvs) in enumerate(items):
             dx, dy = int(dmv[j, 0]), int(dmv[j, 1])
             if dx or dy:
@@ -732,17 +728,24 @@ def frame_device_mc(native_jobs, sps, bd, device="cuda", mesh=None):
     filter class), split over the "tile" devices of `mesh` when one is
     given; the uni/bi/weighted finals batch per size.  A failure raises:
     nothing is handed back to the host MC."""
-    dev = torch.device(device)
-    t = time.perf_counter()
+    row = None
+    if trace.recording():
+        rows = {ry for _, ctus in native_jobs for _, _, ry in ctus}
+        row = rows.pop() if len(rows) == 1 else None
+    with trace.span("mc", row=row):
+        _frame_mc(native_jobs, sps, bd, torch.device(device), mesh)
+
+
+def _frame_mc(native_jobs, sps, bd, dev, mesh):
     stats["calls"] += 1
     descs = []
     rpls = []
-    for tag, (nr, ctus) in enumerate(native_jobs):
-        d = nr.predict_inter_ctus_dev(ctus, tag)
-        rpls.append(nr.rpl)
-        if len(d):
-            descs.append(d)
-    t = _tick("collect_s", t)
+    with trace.span("mc.collect"):
+        for tag, (nr, ctus) in enumerate(native_jobs):
+            d = nr.predict_inter_ctus_dev(ctus, tag)
+            rpls.append(nr.rpl)
+            if len(d):
+                descs.append(d)
     if not descs:
         return
     D = np.concatenate(descs)
@@ -755,9 +758,9 @@ def frame_device_mc(native_jobs, sps, bd, device="cuda", mesh=None):
     prof_jobs = []        # (val_slot, ring_slot, dmx44, dmy44)
     pic_h, pic_w = native_jobs[0][0].fb.planes[0].shape
     planes = _Planes(dev)
-    dmvr_refined = _dmvr_phase(D, rpls, bd, planes) \
-        if ((D[:, 13] & 64) != 0).any() else {}
-    t = _tick("dmvr_s", t)
+    with trace.span("mc.dmvr"):
+        dmvr_refined = _dmvr_phase(D, rpls, bd, planes) \
+            if ((D[:, 13] & 64) != 0).any() else {}
 
     def add_put(plane, xi, yi, fx, fy, w, h, is_luma, hf_idx, wrap,
                 box=None):
@@ -771,155 +774,163 @@ def frame_device_mc(native_jobs, sps, bd, device="cuda", mesh=None):
                         else (xi, yi, fx, fy, *box))
         return (key, len(b["prm"]) - 1)
 
-    for di in range(len(D)):
-        (x0, y0, w, h, pf, r0, r1, mx0, my0, mx1, my1, hpel, tag,
-         flags2, wrap, wmask) = (int(v) for v in D[di, :16])
-        rpl = rpls[tag]
-        if flags2 & 2:
-            # GPM: two uni hypotheses per plane + weight-plane blend
-            lx0, lx1, part = (int(v) for v in D[di, 16:19])
+    with trace.span("mc.expand"):
+        for di in range(len(D)):
+            (x0, y0, w, h, pf, r0, r1, mx0, my0, mx1, my1, hpel, tag,
+             flags2, wrap, wmask) = (int(v) for v in D[di, :16])
+            rpl = rpls[tag]
+            if flags2 & 2:
+                # GPM: two uni hypotheses per plane + weight-plane blend
+                lx0, lx1, part = (int(v) for v in D[di, 16:19])
+                for c in range(nc):
+                    chs, cvs = (0, 0) if c == 0 else (hs, vs)
+                    wc, hc = w >> chs, h >> cvs
+                    slots = []
+                    for i, (lx, ref_i, mvx, mvy) in enumerate(
+                            ((lx0, r0, mx0, my0), (lx1, r1, mx1, my1))):
+                        ref = rpl[lx].frames[ref_i].buffer.planes[c]
+                        if c == 0:
+                            fx, fy = mvx & 15, mvy & 15
+                            xi = x0 + (mvx >> 4)
+                            yi = y0 + (mvy >> 4)
+                        else:
+                            fx = (mvx & ((1 << (4 + chs)) - 1)) << (1 - chs)
+                            fy = (mvy & ((1 << (4 + cvs)) - 1)) << (1 - cvs)
+                            xi = (x0 >> chs) + (mvx >> (4 + chs))
+                            yi = (y0 >> cvs) + (mvy >> (4 + cvs))
+                        slots.append(add_put(ref, xi, yi, fx, fy, wc, hc,
+                                             c == 0, 0, wrap >> chs))
+                    wgt = _gpm_weight_block(part, wc, hc, w, h, chs, cvs)
+                    entries.append((tag, c, x0 >> chs, y0 >> cvs, wc, hc,
+                                    slots, ("gpm", wgt),
+                                    (flags2 & 1) and c == 0))
+                continue
+            if flags2 & 12:
+                # affine (bit2) / subblock grid (bit3): expand per-subblock
+                # MVs from the frame's mvf/cp_mv tab grids
+                _expand_subblocks(
+                    D[di], rpl, native_jobs, nc, hs, vs, add_put, entries,
+                    prof_jobs)
+                continue
+            if flags2 & 192:
+                # DMVR (bit6) / BDOF (bit7): refined MVs from phase A,
+                # box-clamped puts + BDOF rings, col-grid writeback
+                _expand_dmvr_bdof(
+                    D[di], di, rpl, native_jobs, nc, hs, vs, add_put,
+                    entries, dmvr_refined, pic_w, pic_h)
+                continue
+            hyps = [0] if pf == PF_L0 else [1] if pf == PF_L1 else [0, 1]
             for c in range(nc):
                 chs, cvs = (0, 0) if c == 0 else (hs, vs)
                 wc, hc = w >> chs, h >> cvs
                 slots = []
-                for i, (lx, ref_i, mvx, mvy) in enumerate(
-                        ((lx0, r0, mx0, my0), (lx1, r1, mx1, my1))):
-                    ref = rpl[lx].frames[ref_i].buffer.planes[c]
+                for lx in hyps:
+                    ref = rpl[lx].frames[[r0, r1][lx]].buffer.planes[c]
+                    mvx, mvy = (mx0, my0) if lx == 0 else (mx1, my1)
                     if c == 0:
                         fx, fy = mvx & 15, mvy & 15
                         xi = x0 + (mvx >> 4)
                         yi = y0 + (mvy >> 4)
+                        hf_idx = hpel
                     else:
                         fx = (mvx & ((1 << (4 + chs)) - 1)) << (1 - chs)
                         fy = (mvy & ((1 << (4 + cvs)) - 1)) << (1 - cvs)
                         xi = (x0 >> chs) + (mvx >> (4 + chs))
                         yi = (y0 >> cvs) + (mvy >> (4 + cvs))
+                        hf_idx = 0
                     slots.append(add_put(ref, xi, yi, fx, fy, wc, hc,
-                                         c == 0, 0, wrap >> chs))
-                wgt = _gpm_weight_block(part, wc, hc, w, h, chs, cvs)
-                entries.append((tag, c, x0 >> chs, y0 >> cvs, wc, hc,
-                                slots, ("gpm", wgt),
-                                (flags2 & 1) and c == 0))
-            continue
-        if flags2 & 12:
-            # affine (bit2) / subblock grid (bit3): expand per-subblock
-            # MVs from the frame's mvf/cp_mv tab grids
-            _expand_subblocks(
-                D[di], rpl, native_jobs, nc, hs, vs, add_put, entries,
-                prof_jobs)
-            continue
-        if flags2 & 192:
-            # DMVR (bit6) / BDOF (bit7): refined MVs from phase A,
-            # box-clamped puts + BDOF rings, col-grid writeback
-            _expand_dmvr_bdof(
-                D[di], di, rpl, native_jobs, nc, hs, vs, add_put,
-                entries, dmvr_refined, pic_w, pic_h)
-            continue
-        hyps = [0] if pf == PF_L0 else [1] if pf == PF_L1 else [0, 1]
-        for c in range(nc):
-            chs, cvs = (0, 0) if c == 0 else (hs, vs)
-            wc, hc = w >> chs, h >> cvs
-            slots = []
-            for lx in hyps:
-                ref = rpl[lx].frames[[r0, r1][lx]].buffer.planes[c]
-                mvx, mvy = (mx0, my0) if lx == 0 else (mx1, my1)
-                if c == 0:
-                    fx, fy = mvx & 15, mvy & 15
-                    xi = x0 + (mvx >> 4)
-                    yi = y0 + (mvy >> 4)
-                    hf_idx = hpel
-                else:
-                    fx = (mvx & ((1 << (4 + chs)) - 1)) << (1 - chs)
-                    fy = (mvy & ((1 << (4 + cvs)) - 1)) << (1 - cvs)
-                    xi = (x0 >> chs) + (mvx >> (4 + chs))
-                    yi = (y0 >> cvs) + (mvy >> (4 + cvs))
-                    hf_idx = 0
-                slots.append(add_put(ref, xi, yi, fx, fy, wc, hc,
-                                     c == 0, hf_idx, wrap >> chs))
-            wparams = tuple(int(v) for v in D[di, 16 + 5 * c:21 + 5 * c]) \
-                if (wmask >> c) & 1 else None
-            lm = (flags2 & 1) and c == 0
-            entries.append((tag, c, x0 >> chs, y0 >> cvs, wc, hc, slots,
-                            wparams, lm))
-    t = _tick("expand_s", t)
+                                         c == 0, hf_idx, wrap >> chs))
+                wparams = tuple(int(v) for v in D[di, 16 + 5 * c:21 + 5 * c]) \
+                    if (wmask >> c) & 1 else None
+                lm = (flags2 & 1) and c == 0
+                entries.append((tag, c, x0 >> chs, y0 >> cvs, wc, hc, slots,
+                                wparams, lm))
 
-    vals = {}
-    for key, b in put_buckets.items():
-        _pid, w, h, is_luma, hf_idx, has_fx, has_fy, wrap, boxed = key
-        fclass = (1 if has_fx else 0) | (2 if has_fy else 0)
-        vals[key] = _put_sharded(
-            planes(b["plane"]), _up(b["prm"], dev, np.int32), mesh, w, h,
-            is_luma, bd, hf_idx, hf_idx, fclass, wrap, boxed)
-        stats["put_buckets"] += 1
-        stats["put_blocks"] += len(b["prm"])
-        stats["put_class"][fclass] += 1
-    flat = _Flat(vals, lambda key: (key[1], key[2]))
+    with trace.span("mc.put"):
+        vals = {}
+        for key, b in put_buckets.items():
+            _pid, w, h, is_luma, hf_idx, has_fx, has_fy, wrap, boxed = key
+            fclass = (1 if has_fx else 0) | (2 if has_fy else 0)
+            vals[key] = _put_sharded(
+                planes(b["plane"]), _up(b["prm"], dev, np.int32), mesh, w, h,
+                is_luma, bd, hf_idx, hf_idx, fclass, wrap, boxed)
+            stats["put_buckets"] += 1
+            stats["put_blocks"] += len(b["prm"])
+            stats["put_class"][fclass] += 1
+        flat = _Flat(vals, lambda key: (key[1], key[2]))
 
-    if prof_jobs:
-        # batched PROF refinement overrides the affine put slots
-        puts, at = flat.index([s for s, _, _, _ in prof_jobs], dev)
-        puts[at] = _prof_apply_batch(
-            puts[at], flat.take([r for _, r, _, _ in prof_jobs], dev),
-            _up(np.stack([dx for _, _, dx, _ in prof_jobs]), dev),
-            _up(np.stack([dy for _, _, _, dy in prof_jobs]), dev), int(bd))
-        stats["prof_blocks"] += len(prof_jobs)
-        stats["launches"] += 1
-    t = _tick("put_s", t)
+        if prof_jobs:
+            # batched PROF refinement overrides the affine put slots
+            puts, at = flat.index([s for s, _, _, _ in prof_jobs], dev)
+            puts[at] = _prof_apply_batch(
+                puts[at], flat.take([r for _, r, _, _ in prof_jobs], dev),
+                _up(np.stack([dx for _, _, dx, _ in prof_jobs]), dev),
+                _up(np.stack([dy for _, _, _, dy in prof_jobs]), dev), int(bd))
+            stats["prof_blocks"] += len(prof_jobs)
+            stats["launches"] += 1
 
-    # finals: batch uni/bi/weighted combines per (size, kind)
-    finals = {}   # (w, h, kind) -> (slots0, slots1, wparams, writebacks)
-    for tag, c, xc, yc, wc, hc, slots, wp, lm in entries:
-        dstplane = native_jobs[tag][0].fb.planes[c]
-        wb = (dstplane, xc, yc,
-              getattr(native_jobs[tag][0], "lmcs_fwd_np", None)
-              if lm else None)
-        if len(slots) == 1:
-            kind = "uni_w" if wp else "uni"
-        elif isinstance(wp, tuple) and wp[0] in ("gpm", "bdof"):
-            kind = wp[0]
-        else:
-            kind = "bi_w" if wp else "bi"
-        f = finals.setdefault((wc, hc, kind), ([], [], [], []))
-        f[0].append(slots[0])
-        if len(slots) > 1:
-            f[1].append(slots[1])
-        f[2].append(wp)
-        f[3].append(wb)
-
-    for (wc, hc, kind), (sl0, sl1, wps, wbs) in finals.items():
-        s0 = flat.take(sl0, dev)
-        s1 = flat.take(sl1, dev) if sl1 else None
-        if kind == "bi":
-            out = _mc_avg_batch(s0, s1, int(bd))
-        elif kind == "uni":
-            out = _mc_uni_batch(s0, int(bd))
-        elif kind == "gpm":
-            out = _mc_gpm_batch(
-                s0, s1, _up(np.stack([wgt for _, wgt in wps]), dev), int(bd))
-            stats["gpm_blocks"] += len(wps)
-        elif kind == "bdof":
-            out = _bdof_full_batch(
-                s0, s1, flat.take([r0 for _, r0, _ in wps], dev),
-                flat.take([r1 for _, _, r1 in wps], dev), wc, hc, int(bd))
-            stats["bdof_blocks"] += len(wps)
-        else:                          # weighted: (denom, w0, w1, o0, o1)
-            wa = _up(wps, dev, np.int32)
-            stats["weighted_blocks"] += len(wps)
-            if kind == "bi_w":
-                out = _mc_w_avg_batch(s0, s1, *(wa[:, i] for i in range(5)),
-                                      int(bd))
+    # finals: batch uni/bi/weighted combines per (size, kind); every
+    # bucket is queued before the first download waits
+    with trace.span("mc.finals"):
+        finals = {}   # (w, h, kind) -> (slots0, slots1, wparams, writebacks)
+        for tag, c, xc, yc, wc, hc, slots, wp, lm in entries:
+            dstplane = native_jobs[tag][0].fb.planes[c]
+            wb = (dstplane, xc, yc,
+                  getattr(native_jobs[tag][0], "lmcs_fwd_np", None)
+                  if lm else None)
+            if len(slots) == 1:
+                kind = "uni_w" if wp else "uni"
+            elif isinstance(wp, tuple) and wp[0] in ("gpm", "bdof"):
+                kind = wp[0]
             else:
-                out = _mc_uni_w_batch(s0, wa[:, 0], wa[:, 1], wa[:, 3],
-                                      int(bd))
-        stats["finals_buckets"] += 1
-        stats["launches"] += 1
-        out = _down(out.to(torch.int16))     # pixels: at most 12 bits
-        t = _tick("finals_s", t)
-        for i, (plane, xc, yc, lut) in enumerate(wbs):
-            blk = out[i]
-            if lut is not None:
-                # LMCS forward mapping on the inter luma prediction
-                # (predict_inter, vvc_inter.c:888-891)
-                blk = lut[blk]
-            plane[yc:yc + hc, xc:xc + wc] = blk
-        t = _tick("writeback_s", t)
+                kind = "bi_w" if wp else "bi"
+            f = finals.setdefault((wc, hc, kind), ([], [], [], []))
+            f[0].append(slots[0])
+            if len(slots) > 1:
+                f[1].append(slots[1])
+            f[2].append(wp)
+            f[3].append(wb)
+
+        outs = []
+        for (wc, hc, kind), (sl0, sl1, wps, wbs) in finals.items():
+            s0 = flat.take(sl0, dev)
+            s1 = flat.take(sl1, dev) if sl1 else None
+            if kind == "bi":
+                out = _mc_avg_batch(s0, s1, int(bd))
+            elif kind == "uni":
+                out = _mc_uni_batch(s0, int(bd))
+            elif kind == "gpm":
+                out = _mc_gpm_batch(
+                    s0, s1, _up(np.stack([wgt for _, wgt in wps]), dev),
+                    int(bd))
+                stats["gpm_blocks"] += len(wps)
+            elif kind == "bdof":
+                out = _bdof_full_batch(
+                    s0, s1, flat.take([r0 for _, r0, _ in wps], dev),
+                    flat.take([r1 for _, _, r1 in wps], dev), wc, hc,
+                    int(bd))
+                stats["bdof_blocks"] += len(wps)
+            else:                      # weighted: (denom, w0, w1, o0, o1)
+                wa = _up(wps, dev, np.int32)
+                stats["weighted_blocks"] += len(wps)
+                if kind == "bi_w":
+                    out = _mc_w_avg_batch(s0, s1,
+                                          *(wa[:, i] for i in range(5)),
+                                          int(bd))
+                else:
+                    out = _mc_uni_w_batch(s0, wa[:, 0], wa[:, 1], wa[:, 3],
+                                          int(bd))
+            stats["finals_buckets"] += 1
+            stats["launches"] += 1
+            outs.append(out.to(torch.int16))    # pixels: at most 12 bits
+        with trace.span("mc.download"):
+            outs = [_down(out) for out in outs]
+    with trace.span("mc.writeback"):
+        for ((wc, hc, _), (_, _, _, wbs)), out in zip(finals.items(), outs):
+            for i, (plane, xc, yc, lut) in enumerate(wbs):
+                blk = out[i]
+                if lut is not None:
+                    # LMCS forward mapping on the inter luma prediction
+                    # (predict_inter, vvc_inter.c:888-891)
+                    blk = lut[blk]
+                plane[yc:yc + hc, xc:xc + wc] = blk

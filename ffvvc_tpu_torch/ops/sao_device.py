@@ -27,6 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..sao import SAO_BAND, SAO_EDGE, SaoFilter, _EDGE_IDX
 
 from . import _build
@@ -378,6 +379,7 @@ def as_wire(plane):
     return np.ascontiguousarray(plane, dtype=np.int16)
 
 
+@trace.traced("sao")
 def sao_frame_device(sps, pps, tabs, fb, device="cuda"):
     """Device SAO over all planes of a frame, in place on fb.planes: every
     plane that has SAO goes up as 16-bit samples with its per-CTB table,

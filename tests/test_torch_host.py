@@ -69,8 +69,10 @@ DIFFER = {
     # port (61 lines)
     "config.py": ("ffvvc_tpu/config.py", 61),
     # the reference's _decode_frame, mesh included, with backend "cuda" and
-    # the torch device passed to every device stage (70 lines)
-    "decoder.py": ("ffvvc_tpu/decoder.py", 70),
+    # the torch device passed to every device stage (70 lines); trace.py's
+    # spans, waits and frame tags in place of its per-stage clock, most of
+    # them blocks indented under a span (169 lines)
+    "decoder.py": ("ffvvc_tpu/decoder.py", 239),
     # no path set-up (7 lines)
     "tools/forge.py": ("tools/forge.py", 7),
     # spawned GOP workers when a stage runs on CUDA, pools keyed by start
@@ -118,7 +120,7 @@ def test_every_host_file_is_accounted_for():
            "ops/itx.py", "ops/intra_device.py", "csrc/filters.cu",
            "native/_build.py", "tools/__init__.py", "tools/alf_ab.py",
            "tools/decode.py", "tools/sass.py", "parallel/__init__.py",
-           "parallel/mesh.py", "parallel/filters.py"}
+           "parallel/mesh.py", "parallel/filters.py", "trace.py"}
     found = set()
     for d, dirs, names in os.walk(os.path.join(ROOT, "ffvvc_tpu_torch")):
         dirs[:] = [x for x in dirs if x not in ("build", "__pycache__")]
