@@ -95,6 +95,10 @@ def load_lib():
                                         ctypes.c_int, ctypes.c_int,
                                         ctypes.c_int]
     lib.deblock_frame_range.restype = None
+    lib.deblock_frame_segments.argtypes = [
+        ctypes.POINTER(BsCtx), ctypes.POINTER(DeblockFrame), ctypes.c_int,
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_int16)), ctypes.c_long, _I32P]
+    lib.deblock_frame_segments.restype = ctypes.c_int
     return lib
 
 

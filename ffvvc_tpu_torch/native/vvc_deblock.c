@@ -8,6 +8,7 @@
  */
 #include <stdint.h>
 #include <stdlib.h>
+#include <string.h>
 
 typedef struct {
     int32_t *plane;
@@ -36,6 +37,12 @@ static inline int iclip(int v, int lo, int hi)
 }
 
 static inline int iabs(int v) { return v < 0 ? -v : v; }
+
+/* tC of the table (10-bit) scaled to the bit depth */
+static inline int tc_bd(int tc0, int bd)
+{
+    return bd < 10 ? (tc0 + (1 << (9 - bd))) >> (10 - bd) : tc0 << (bd - 10);
+}
 
 #define P(k, line) eget(e, -(k) - 1, line)
 #define Q(k, line) eget(e, (k), line)
@@ -143,9 +150,7 @@ void deblock_filter_luma(int32_t *plane, long stride, int px, int py,
                          int mx)
 {
     for (int i = 0; i < 2; i++) {
-        int tc0 = tc_a[i];
-        int tc = bd < 10 ? (tc0 + (1 << (9 - bd))) >> (10 - bd)
-                         : tc0 << (bd - 10);
+        int tc = tc_bd(tc_a[i], bd);
         if (!tc)
             continue;
         Edge ee;
@@ -268,9 +273,7 @@ void deblock_filter_chroma(int32_t *plane, long stride, int px, int py,
     int size = shift ? 2 : 4;
     int end = 8 / size;
     for (int i = 0; i < end; i++) {
-        int tc0 = tc_a[i];
-        int tc = bd < 10 ? (tc0 + (1 << (9 - bd))) >> (10 - bd)
-                         : tc0 << (bd - 10);
+        int tc = tc_bd(tc_a[i], bd);
         if (!tc)
             continue;
         Edge ee;
@@ -368,6 +371,124 @@ static int ladf_qp_offset_c(const int32_t *luma, long lstride, int x, int y,
     return qp_offset;
 }
 
+/* The tables one CTB's edges of one plane in one direction read. */
+typedef struct {
+    int c_idx, vertical, grid, step, n, hs, vs, ctb_size, w4, bd;
+    const int32_t *bs_tab, *mlp_tab, *mlq_tab, *tb_size_tab, *qp_map;
+    int beta_off, tc_off, qp_bd_offset;
+    /* LADF: the luma samples its qp offset reads (luma edges only) */
+    const int32_t *luma;
+    long lstride;
+    int n_ladf, ladf_lowest;
+    const int32_t *ladf_offsets, *ladf_bounds;
+} EdgeTabs;
+
+/* bS-derived beta, tC (table values, before the bit-depth scaling) and
+ * maximum filter lengths of the n edge units of the edge at (x, y), all
+ * 0 where bS is 0; returns 0 when every bS is 0.  The one derivation of
+ * the filters and the segment emitter (golden model: deblock.py
+ * _filter_edge, _edge_qp, _max_filter_length). */
+static int edge_params(const EdgeTabs *t, int x, int y, int x_end, int y_end,
+                       int hor_ctu_edge, int32_t beta[4], int32_t tc[4],
+                       int32_t mlp[4], int32_t mlq[4])
+{
+    int vertical = t->vertical, w4 = t->w4;
+    int dx = vertical ? 1 : 0, dy = vertical ? 0 : 1;
+    int any = 0;
+    for (int i = 0; i < t->n; i++) {
+        int d = i << 2;
+        int pos_x = vertical ? x : x + d;
+        int pos_y = vertical ? y + d : y;
+        int in_range = vertical ? pos_y < y_end : pos_x < x_end;
+        int bs = in_range ? t->bs_tab[(pos_y >> 2) * w4 + (pos_x >> 2)] : 0;
+        beta[i] = tc[i] = mlp[i] = mlq[i] = 0;
+        if (!bs)
+            continue;
+        int qp;
+        int qp_p = t->qp_map[((pos_y - dy) >> 2) * w4 + ((pos_x - dx) >> 2)];
+        int qp_q = t->qp_map[(pos_y >> 2) * w4 + (pos_x >> 2)];
+        if (t->c_idx == 0) {
+            qp = (qp_p + qp_q + 1) >> 1;
+            if (t->n_ladf)
+                qp += ladf_qp_offset_c(t->luma, t->lstride, pos_x, pos_y,
+                                       vertical, t->n_ladf, t->ladf_lowest,
+                                       t->ladf_offsets, t->ladf_bounds);
+        } else {
+            qp = (qp_p + qp_q - 2 * t->qp_bd_offset + 1) >> 1;
+        }
+        beta[i] = BETA_TABLE_C[iclip(qp + t->beta_off, 0, 63)];
+        tc[i] = TC_TABLE_C[iclip(qp + 2 * (bs - 1) + (t->tc_off & -2),
+                                 0, 65)];
+        if (t->c_idx == 0) {
+            mlp[i] = t->mlp_tab[(pos_y >> 2) * w4 + (pos_x >> 2)];
+            mlq[i] = t->mlq_tab[(pos_y >> 2) * w4 + (pos_x >> 2)];
+        } else {
+            int ppx = vertical ? pos_x - 1 : pos_x;
+            int ppy = vertical ? pos_y : pos_y - 1;
+            int size_p = t->tb_size_tab[(ppy >> 2) * w4 + (ppx >> 2)];
+            int size_q = t->tb_size_tab[(pos_y >> 2) * w4 + (pos_x >> 2)];
+            if (size_p >= 8 && size_q >= 8) {
+                mlp[i] = hor_ctu_edge ? 1 : 3;
+                mlq[i] = 3;
+            } else {
+                mlp[i] = mlq[i] = bs == 2;
+            }
+        }
+        any = 1;
+    }
+    return any;
+}
+
+/* What is done with an edge that has a nonzero bS: filtered, or emitted
+ * as segments; (px, py) in the plane's samples. */
+typedef void (*EdgeVisit)(void *arg, const EdgeTabs *t, int px, int py,
+                          int hor_ctu_edge, const int32_t *beta,
+                          const int32_t *tc, const int32_t *mlp,
+                          const int32_t *mlq);
+
+/* Every edge of one CTB [x0, x_end) x [y0, y_end) (luma samples) in the
+ * golden model's order (deblock.py deblock_ctb). */
+static void walk_ctb_edges(const EdgeTabs *t, int x0, int y0, int x_end,
+                           int y_end, EdgeVisit visit, void *arg)
+{
+    int vertical = t->vertical;
+    int ys = vertical ? t->step : t->grid;
+    int xs = vertical ? t->grid : t->step;
+    for (int y = y0; y < y_end; y += ys) {
+        int hor_ctu_edge = !vertical && (y % t->ctb_size) == 0;
+        if (!vertical && y == 0)
+            continue;
+        for (int x = vertical && !x0 ? t->grid : x0; x < x_end; x += xs) {
+            int32_t beta[4], tc[4], mlp[4], mlq[4];
+            if (edge_params(t, x, y, x_end, y_end, hor_ctu_edge, beta, tc,
+                            mlp, mlq))
+                visit(arg, t, x >> t->hs, y >> t->vs, hor_ctu_edge, beta,
+                      tc, mlp, mlq);
+        }
+    }
+}
+
+typedef struct {
+    int32_t *plane;
+    long stride;
+    int mx;
+} FilterArg;
+
+static void filter_visit(void *arg, const EdgeTabs *t, int px, int py,
+                         int hor_ctu_edge, const int32_t *beta,
+                         const int32_t *tc, const int32_t *mlp,
+                         const int32_t *mlq)
+{
+    const FilterArg *a = arg;
+    if (t->c_idx == 0)
+        deblock_filter_luma(a->plane, a->stride, px, py, t->vertical,
+                            beta, tc, mlp, mlq, hor_ctu_edge, t->bd, a->mx);
+    else
+        deblock_filter_chroma(a->plane, a->stride, px, py, t->vertical,
+                              beta, tc, mlp, mlq,
+                              t->vertical ? t->vs : t->hs, t->bd, a->mx);
+}
+
 void deblock_ctb_edges(
     int32_t *plane, long stride, int c_idx, int vertical,
     int x0, int y0, int x_end, int y_end,
@@ -378,80 +499,16 @@ void deblock_ctb_edges(
     int n_ladf, int ladf_lowest, const int32_t *ladf_offsets,
     const int32_t *ladf_bounds)
 {
-    int dx = vertical ? 1 : 0, dy = vertical ? 0 : 1;
-    int ys = vertical ? step : grid;
-    for (int y = y0; y < y_end; y += ys) {
-        int hor_ctu_edge = !vertical && (y % ctb_size) == 0;
-        if (!vertical && y == 0)
-            continue;
-        int x = x0;
-        int xs;
-        if (vertical) {
-            if (!x0)
-                x = grid;
-            xs = grid;
-        } else {
-            xs = step;
-        }
-        for (; x < x_end; x += xs) {
-            int32_t bs[4], beta[4], tc[4], mlp[4], mlq[4];
-            int all_zero = 1;
-            for (int i = 0; i < n; i++) {
-                int d = i << 2;
-                int pos_x = vertical ? x : x + d;
-                int pos_y = vertical ? y + d : y;
-                int in_range = vertical ? pos_y < y_end : pos_x < x_end;
-                bs[i] = in_range ? bs_tab[(pos_y >> 2) * w4 + (pos_x >> 2)]
-                                 : 0;
-                beta[i] = tc[i] = mlp[i] = mlq[i] = 0;
-                if (!bs[i])
-                    continue;
-                int qp;
-                int qp_p = qp_map[((pos_y - dy) >> 2) * w4 +
-                                  ((pos_x - dx) >> 2)];
-                int qp_q = qp_map[(pos_y >> 2) * w4 + (pos_x >> 2)];
-                if (c_idx == 0) {
-                    qp = (qp_p + qp_q + 1) >> 1;
-                    if (n_ladf)
-                        qp += ladf_qp_offset_c(plane, stride, pos_x, pos_y,
-                                               vertical, n_ladf, ladf_lowest,
-                                               ladf_offsets, ladf_bounds);
-                } else {
-                    qp = (qp_p + qp_q - 2 * qp_bd_offset + 1) >> 1;
-                }
-                beta[i] = BETA_TABLE_C[iclip(qp + beta_off, 0, 63)];
-                tc[i] = TC_TABLE_C[iclip(qp + 2 * (bs[i] - 1) + (tc_off & -2),
-                                         0, 65)];
-                if (c_idx == 0) {
-                    mlp[i] = mlp_tab[(pos_y >> 2) * w4 + (pos_x >> 2)];
-                    mlq[i] = mlq_tab[(pos_y >> 2) * w4 + (pos_x >> 2)];
-                } else {
-                    int ppx = vertical ? pos_x - 1 : pos_x;
-                    int ppy = vertical ? pos_y : pos_y - 1;
-                    int size_p = tb_size_tab[(ppy >> 2) * w4 + (ppx >> 2)];
-                    int size_q = tb_size_tab[(pos_y >> 2) * w4 +
-                                             (pos_x >> 2)];
-                    if (size_p >= 8 && size_q >= 8) {
-                        mlp[i] = hor_ctu_edge ? 1 : 3;
-                        mlq[i] = 3;
-                    } else {
-                        mlp[i] = mlq[i] = bs[i] == 2;
-                    }
-                }
-                all_zero = 0;
-            }
-            if (all_zero)
-                continue;
-            int px = x >> hs, py = y >> vs;
-            if (c_idx == 0)
-                deblock_filter_luma(plane, stride, px, py, vertical,
-                                    beta, tc, mlp, mlq, hor_ctu_edge, bd, mx);
-            else
-                deblock_filter_chroma(plane, stride, px, py, vertical,
-                                      beta, tc, mlp, mlq,
-                                      vertical ? vs : hs, bd, mx);
-        }
-    }
+    EdgeTabs t = {
+        .c_idx = c_idx, .vertical = vertical, .grid = grid, .step = step,
+        .n = n, .hs = hs, .vs = vs, .ctb_size = ctb_size, .w4 = w4,
+        .bd = bd, .bs_tab = bs_tab, .mlp_tab = mlp_tab, .mlq_tab = mlq_tab,
+        .tb_size_tab = tb_size_tab, .qp_map = qp_map, .beta_off = beta_off,
+        .tc_off = tc_off, .qp_bd_offset = qp_bd_offset, .luma = plane,
+        .lstride = stride, .n_ladf = n_ladf, .ladf_lowest = ladf_lowest,
+        .ladf_offsets = ladf_offsets, .ladf_bounds = ladf_bounds};
+    FilterArg a = {plane, stride, mx};
+    walk_ctb_edges(&t, x0, y0, x_end, y_end, filter_visit, &a);
 }
 
 /* ---- boundary-strength computation (golden model: deblock.py _compute_bs
@@ -805,6 +862,64 @@ typedef struct {
 #define LUMA_GRID    4
 #define CHROMA_GRID  8
 
+/* Every edge of one direction over the CTBs [rlo, rhi) x [clo, chi), in
+ * raster order, each CTB's bS first (deblock.py deblock_frame/deblock_ctb);
+ * CTBs with deblocking disabled are skipped.  args: visit's argument for
+ * each plane. */
+static void frame_walk(const BsCtx *c, const DeblockFrame *f, int vertical,
+                       int rlo, int rhi, int clo, int chi, EdgeVisit visit,
+                       void *const args[3])
+{
+    const int32_t *qps[3] = {f->qp0, f->qp1, f->qp2};
+    int c_end = c->chroma ? 3 : 1;
+    for (int ry = rlo; ry < rhi; ry++) {
+        for (int rx = clo; rx < chi; rx++) {
+            int rs = ry * f->ctb_w + rx;
+            if (f->dis[rs])
+                continue;
+            int x0 = rx * c->ctb_size, y0 = ry * c->ctb_size;
+            int lt = rx > 0 && f->col_bd[rx] != f->col_bd[rx - 1];
+            int ls = rx > 0 &&
+                c->slice_idx[rs] != c->slice_idx[rs - 1];
+            int ut = ry > 0 && f->row_bd[ry] != f->row_bd[ry - 1];
+            int us = ry > 0 &&
+                c->slice_idx[rs] != c->slice_idx[rs - f->ctb_w];
+            deblock_compute_bs(c, x0, y0, vertical, lt, ls, ut, us);
+            int x_end = x0 + c->ctb_size;
+            int y_end = y0 + c->ctb_size;
+            if (x_end > c->pic_w) x_end = c->pic_w;
+            if (y_end > c->pic_h) y_end = c->pic_h;
+            for (int ci = 0; ci < c_end; ci++) {
+                int hs = ci ? c->hs1 : 0, vs = ci ? c->vs1 : 0;
+                /* across the edge: the grid; along it: the step */
+                int across = vertical ? hs : vs, along = vertical ? vs : hs;
+                EdgeTabs t = {
+                    .c_idx = ci, .vertical = vertical,
+                    .grid = ci ? (CHROMA_GRID << across) : LUMA_GRID,
+                    .step = DEBLOCK_STEP << along,
+                    .n = ci ? (DEBLOCK_STEP >> (2 - along))
+                            : (DEBLOCK_STEP >> 2),
+                    .hs = hs, .vs = vs, .ctb_size = c->ctb_size, .w4 = c->w4,
+                    .bd = f->bd,
+                    .bs_tab = vertical
+                        ? (ci == 0 ? c->vbs0 : ci == 1 ? c->vbs1 : c->vbs2)
+                        : (ci == 0 ? c->hbs0 : ci == 1 ? c->hbs1 : c->hbs2),
+                    .mlp_tab = vertical ? c->vp : c->hp,
+                    .mlq_tab = vertical ? c->vq : c->hq,
+                    .tb_size_tab = vertical ? c->tb_w1 : c->tb_h1,
+                    .qp_map = qps[ci],
+                    .beta_off = f->beta[rs * 3 + ci],
+                    .tc_off = f->tc[rs * 3 + ci],
+                    .qp_bd_offset = f->qp_bd_offset,
+                    .luma = f->plane0, .lstride = c->pic_w,
+                    .n_ladf = f->n_ladf, .ladf_lowest = f->ladf_lowest,
+                    .ladf_offsets = f->ladf_off, .ladf_bounds = f->ladf_bnd};
+                walk_ctb_edges(&t, x0, y0, x_end, y_end, visit, args[ci]);
+            }
+        }
+    }
+}
+
 /* One pass (vertical or horizontal) over a CTB range.  Parallel-safe
  * split axis: vertical-edge filtering only writes pixels of its own rows
  * -> shard by CTB row [lo, hi); horizontal-edge filtering only writes its
@@ -813,65 +928,96 @@ typedef struct {
 void deblock_frame_range(const BsCtx *c, const DeblockFrame *f,
                          int vertical, int rlo, int rhi, int clo, int chi)
 {
-    int32_t *planes[3] = {f->plane0, f->plane1, f->plane2};
-    const int32_t *qps[3] = {f->qp0, f->qp1, f->qp2};
-    int c_end = c->chroma ? 3 : 1;
-    {
-        for (int ry = rlo; ry < rhi; ry++) {
-            for (int rx = clo; rx < chi; rx++) {
-                int rs = ry * f->ctb_w + rx;
-                if (f->dis[rs])
-                    continue;
-                int x0 = rx * c->ctb_size, y0 = ry * c->ctb_size;
-                int lt = rx > 0 && f->col_bd[rx] != f->col_bd[rx - 1];
-                int ls = rx > 0 &&
-                    c->slice_idx[rs] != c->slice_idx[rs - 1];
-                int ut = ry > 0 && f->row_bd[ry] != f->row_bd[ry - 1];
-                int us = ry > 0 &&
-                    c->slice_idx[rs] != c->slice_idx[rs - f->ctb_w];
-                deblock_compute_bs(c, x0, y0, vertical, lt, ls, ut, us);
-                int x_end = x0 + c->ctb_size;
-                int y_end = y0 + c->ctb_size;
-                if (x_end > c->pic_w) x_end = c->pic_w;
-                if (y_end > c->pic_h) y_end = c->pic_h;
-                for (int ci = 0; ci < c_end; ci++) {
-                    int hs = ci ? c->hs1 : 0, vs = ci ? c->vs1 : 0;
-                    int beta_off = f->beta[rs * 3 + ci];
-                    int tc_off = f->tc[rs * 3 + ci];
-                    int grid, step, n;
-                    const int32_t *bs_tab, *mlp, *mlq, *tbsz;
-                    if (vertical) {
-                        grid = ci ? (CHROMA_GRID << hs) : LUMA_GRID;
-                        step = DEBLOCK_STEP << vs;
-                        n = ci ? (DEBLOCK_STEP >> (2 - vs))
-                               : (DEBLOCK_STEP >> 2);
-                        bs_tab = ci == 0 ? c->vbs0
-                               : ci == 1 ? c->vbs1 : c->vbs2;
-                        mlp = c->vp; mlq = c->vq;
-                        tbsz = c->tb_w1;
-                    } else {
-                        grid = ci ? (CHROMA_GRID << vs) : LUMA_GRID;
-                        step = DEBLOCK_STEP << hs;
-                        n = ci ? (DEBLOCK_STEP >> (2 - hs))
-                               : (DEBLOCK_STEP >> 2);
-                        bs_tab = ci == 0 ? c->hbs0
-                               : ci == 1 ? c->hbs1 : c->hbs2;
-                        mlp = c->hp; mlq = c->hq;
-                        tbsz = c->tb_h1;
-                    }
-                    deblock_ctb_edges(planes[ci],
-                                      ci ? (c->pic_w >> c->hs1) : c->pic_w,
-                                      ci, vertical, x0, y0, x_end, y_end,
-                                      grid, step, n, hs, vs, c->ctb_size,
-                                      bs_tab, mlp, mlq, tbsz, qps[ci],
-                                      c->w4, beta_off, tc_off,
-                                      f->qp_bd_offset, f->bd, f->pixel_max,
-                                      f->n_ladf, f->ladf_lowest,
-                                      f->ladf_off, f->ladf_bnd);
-                }
-            }
-        }
+    FilterArg a[3] = {{f->plane0, c->pic_w, f->pixel_max},
+                      {f->plane1, c->pic_w >> c->hs1, f->pixel_max},
+                      {f->plane2, c->pic_w >> c->hs1, f->pixel_max}};
+    void *const args[3] = {&a[0], &a[1], &a[2]};
+    frame_walk(c, f, vertical, rlo, rhi, clo, chi, filter_visit, args);
+}
+
+/* ---- segment emitter: the device deblock's per-segment parameters ------
+ * (golden model: ops/deblock_device.py _Rasterizer).  A segment is 7
+ * int16 fields: luma (px, py, tc, beta, mlp, mlq, hor_ctu_edge) per 4
+ * lines, chroma (px, py, tc, beta, mlp, mlq, size) per size lines; tc is
+ * scaled to the bit depth and beta shifted to it. */
+
+typedef struct {
+    int16_t *buf;    /* [7][cap] */
+    long cap, n;
+    int overflow;
+} SegOut;
+
+static void seg_put(SegOut *o, int ex, int ey, int tc, int beta, int mlp,
+                    int mlq, int last)
+{
+    if (o->n >= o->cap) {
+        o->overflow = 1;
+        return;
     }
+    int16_t *b = o->buf + o->n++;
+    long s = o->cap;
+    b[0] = ex; b[s] = ey; b[2 * s] = tc; b[3 * s] = beta;
+    b[4 * s] = mlp; b[5 * s] = mlq; b[6 * s] = last;
+}
+
+static void emit_visit(void *arg, const EdgeTabs *t, int px, int py,
+                       int hor_ctu_edge, const int32_t *beta,
+                       const int32_t *tc, const int32_t *mlp,
+                       const int32_t *mlq)
+{
+    SegOut *o = arg;
+    int bd = t->bd;
+    /* luma: 2 segments of 4 lines; chroma: 4 of 2 or 2 of 4 by the shift */
+    int size = t->c_idx == 0 ? 4 : ((t->vertical ? t->vs : t->hs) ? 2 : 4);
+    for (int i = 0; i < 8 / size; i++) {
+        int tcs = tc_bd(tc[i], bd);
+        if (!tcs || (t->c_idx && (!mlp[i] || !mlq[i])))
+            continue;
+        int ex = t->vertical ? px : px + i * size;
+        int ey = t->vertical ? py + i * size : py;
+        seg_put(o, ex, ey, tcs, beta[i] << (bd - 8), mlp[i], mlq[i],
+                t->c_idx ? size : hor_ctu_edge);
+    }
+}
+
+/* The segments of one direction, every plane, into out[c]: int16 buffers
+ * of 7 * cap entries, cap a power of two.  On return out[c] holds
+ * counts[c] segments in the [7, B] layout the device reads (field-major,
+ * B the least power of two >= max(counts[c], 8), columns past counts[c]
+ * zero).  Reads no samples.  Returns 0; -1 under LADF (its qp offset
+ * reads the samples mid-pass); -2 when a plane's segments pass cap. */
+int deblock_frame_segments(const BsCtx *c, const DeblockFrame *f,
+                           int vertical, int16_t *const out[3], long cap,
+                           int32_t counts[3])
+{
+    if (f->n_ladf)
+        return -1;
+    SegOut o[3];
+    int nc = c->chroma ? 3 : 1;
+    for (int ci = 0; ci < 3; ci++) {
+        o[ci].buf = ci < nc ? out[ci] : NULL;
+        o[ci].cap = cap;
+        o[ci].n = 0;
+        o[ci].overflow = 0;
+    }
+    void *const args[3] = {&o[0], &o[1], &o[2]};
+    frame_walk(c, f, vertical, 0, f->ctb_h, 0, f->ctb_w, emit_visit, args);
+    for (int ci = 0; ci < nc; ci++) {
+        if (o[ci].overflow)
+            return -2;
+        long n = o[ci].n, b = 8;
+        while (b < n)
+            b <<= 1;
+        /* field k moves from k * cap down to k * b: never onto a field
+         * still to move */
+        for (int k = 0; k < 7; k++) {
+            memmove(o[ci].buf + k * b, o[ci].buf + k * cap,
+                    n * sizeof(int16_t));
+            memset(o[ci].buf + k * b + n, 0, (b - n) * sizeof(int16_t));
+        }
+        counts[ci] = (int32_t)n;
+    }
+    return 0;
 }
 
 /* threading-shard entry: the vertical pass shards by CTB rows, the

@@ -2,7 +2,9 @@
 
 Port of `ffvvc_tpu/ops/deblock_device.py`: the host rasterizes one
 parameter tuple per 4-line (luma) or 2/4-line (chroma) edge segment —
-pixel-independent, from the golden Deblocker's boundary-strength walk —
+pixel-independent, in C (`vvc_deblock.c`'s `deblock_frame_segments`, the
+host deblock's own bS and edge walk), with the golden Deblocker's Python
+walk as its model and fallback —
 and one pass per direction gathers every segment's tap window, takes the
 long/strong/weak decisions and scatter-adds the masked deltas.  Per
 direction the spec guarantees disjoint writes, which makes the whole frame
@@ -19,11 +21,22 @@ runs the same `luma_math` and `chroma_math` on the same segment arrays.
 """
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
 from .. import trace
 from ..deblock import Deblocker
+from ..native import deblock as _native
+
+# directions rasterized by vvc_deblock.c's emitter and by the Python
+# fallback (_Rasterizer); reset with reset_stats()
+stats = {"raster_native": 0, "raster_python": 0}
+
+
+def reset_stats():
+    stats.update(raster_native=0, raster_python=0)
 
 # padded (coef, tc_weight) rows indexed by (ml - 3) // 2  ->  ml in {3,5,7}
 _COEF = np.array([[53, 32, 11, 0, 0, 0, 0],
@@ -35,13 +48,16 @@ _TCW = np.array([[6, 4, 2, 0, 0, 0, 0],
 
 
 class _Rasterizer(Deblocker):
-    """Collects per-segment filter parameters instead of filtering.
+    """Collects per-segment filter parameters instead of filtering: the
+    golden model of vvc_deblock.c's `deblock_frame_segments`, and the
+    fallback where that cannot run.
     Segments: luma (px, py, tc, beta, mlp, mlq, hor_ctu_edge) per 4 lines;
     chroma (px, py, tc, beta, mlp, mlq, size) per size lines."""
 
     def __init__(self, sps, pps, tabs, fb):
         super().__init__(sps, pps, tabs, fb)
-        # force the Python per-edge walk (keep the C BS computation)
+        # the Python walk throughout: no plane pointers (no C per-CTB
+        # edges) and no _bs_ctx (the Python BS computation)
         self._ptr = dict(self._ptr)
         self._ptr["planes"] = [None, None, None]
         self.luma_segs = []
@@ -98,26 +114,71 @@ def _pad_pow2(n):
 
 
 def seg_array(segs):
-    """Segment tuples as the padded int16 [7, B] array that travels to the
-    device.  Padded segments keep tc == 0 and mlp == mlq == 0, which masks
-    every filter branch off (zero deltas), so padding is an exact no-op.
-    int16 holds every field: px/py < 2^15 for any level-supported picture,
-    tc <= 1580 (12-bit), beta <= 1408."""
-    a = np.zeros((7, _pad_pow2(max(len(segs), 1))), np.int16)
-    if segs:
+    """Segment tuples (or an [N, 7] array) as the padded int16 [7, B]
+    array that travels to the device.  Padded segments keep tc == 0 and
+    mlp == mlq == 0, which masks every filter branch off (zero deltas), so
+    padding is an exact no-op.  int16 holds every field: px/py < 2^15 for
+    any level-supported picture, tc <= 1580 (12-bit), beta <= 1408."""
+    a = np.zeros((7, _pad_pow2(len(segs))), np.int16)
+    if len(segs):
         a[:, :len(segs)] = np.asarray(segs, np.int16).T
     return a
 
 
+def _seg_cap(pps):
+    """A power of two at least the segments any plane can have in one
+    direction: luma edges lie on a 4-sample grid in 4-line segments,
+    chroma edges on an 8-sample grid in 2- or 4-line segments."""
+    return _pad_pow2(((pps.width >> 2) + 2) * ((pps.height >> 1) + 2))
+
+
 def rasterize_deblock(sps, pps, tabs, fb, slice_rpls, vertical):
-    """Host pass: per-segment deblock parameters for one direction
-    (pixel-independent — BS/tc/beta/max-len come from the tab planes).
-    Returns the populated _Rasterizer."""
+    """Host pass: the per-segment deblock parameters of one direction
+    (pixel-independent: bS, tc, beta and the filter lengths come from the
+    tab planes).  Returns (arrays, counts): per plane the padded int16
+    [7, B] array that travels to the device (`seg_array`'s layout) and its
+    number of segments.  vvc_deblock.c's `deblock_frame_segments` emits
+    them, with the interpreter's lock released; `_Rasterizer` where the
+    library or the tab layout rules that out, or under LADF."""
+    nc = 3 if sps.chroma_format_idc else 1
+    db = Deblocker(sps, pps, tabs, fb)
+    db.slice_rpls = slice_rpls
+    if db.lib is not None and not sps.num_ladf_intervals:
+        db._bs_ctx = db._build_bs_ctx()
+        # the emitter reads no samples: NULL planes, whatever their layout
+        db._ptr = dict(db._ptr, planes=[_native._I32P()] * 3)
+        if db._bs_ctx is not None and db._build_frame_ctx():
+            cap = _seg_cap(pps)
+            bufs = [np.empty(7 * cap, np.int16) for _ in range(nc)]
+            out = (ctypes.POINTER(ctypes.c_int16) * 3)(*[
+                b.ctypes.data_as(ctypes.POINTER(ctypes.c_int16))
+                for b in bufs])
+            counts = np.zeros(3, np.int32)
+            rc = db.lib.deblock_frame_segments(
+                ctypes.byref(db._bs_ctx), ctypes.byref(db._f), int(vertical),
+                out, cap, _native.as_i32p(counts))
+            if rc:
+                raise RuntimeError(f"deblock_frame_segments returned {rc}")
+            stats["raster_native"] += 1
+            counts = [int(n) for n in counts[:nc]]
+            return [b[:7 * _pad_pow2(n)].reshape(7, -1)
+                    for b, n in zip(bufs, counts)], counts
+    stats["raster_python"] += 1
+    ras = rasterize_python(sps, pps, tabs, fb, slice_rpls, vertical)
+    segs = [ras.luma_segs] + [ras.chroma_segs[c] for c in range(1, nc)]
+    return [seg_array(s) for s in segs], [len(s) for s in segs]
+
+
+def rasterize_python(sps, pps, tabs, fb, slice_rpls, vertical):
+    """The golden walk of one direction: every CTB whose deblocking is not
+    disabled, as the host deblock walks them.  Returns the populated
+    _Rasterizer."""
     ras = _Rasterizer(sps, pps, tabs, fb)
     ras.slice_rpls = slice_rpls
     for ry in range(pps.ctb_height):
         for rx in range(pps.ctb_width):
-            ras.deblock_ctb(rx, ry, vertical)
+            if not tabs.deblock_disabled[ry * pps.ctb_width + rx]:
+                ras.deblock_ctb(rx, ry, vertical)
     return ras
 
 
@@ -474,20 +535,19 @@ def deblock_frame_device(sps, pps, tabs, fb, slice_rpls, device="cuda"):
         return False
     dev = torch.device(device)
     pix_max = (1 << sps.bit_depth) - 1
-    passes = [(v, rasterize_deblock(sps, pps, tabs, fb, slice_rpls, v))
+    passes = [(v, *rasterize_deblock(sps, pps, tabs, fb, slice_rpls, v))
               for v in (True, False)]
     for c in range(3 if sps.chroma_format_idc else 1):
         math = luma_math if c == 0 else chroma_math
         plane = None
-        for vertical, ras in passes:
-            segs = ras.luma_segs if c == 0 else ras.chroma_segs.get(c)
-            if not segs:
+        for vertical, arrays, counts in passes:
+            if not counts[c]:
                 continue
             if plane is None:
                 plane = torch.from_numpy(
                     np.ascontiguousarray(fb.planes[c], np.int16)).to(dev)
                 plane = plane.to(torch.int32)
-            s = torch.from_numpy(seg_array(segs)).to(dev).to(torch.int32)
+            s = torch.from_numpy(arrays[c]).to(dev).to(torch.int32)
             plane = math(plane, *s.unbind(0), vertical, pix_max)
         if plane is not None:
             fb.planes[c][:] = plane.to(torch.int16).cpu().numpy()

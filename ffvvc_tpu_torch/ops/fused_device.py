@@ -40,8 +40,8 @@ from . import data as D
 from .alf_device import (EDGE_BOTTOM, EDGE_LEFT, EDGE_RIGHT, EDGE_TOP,
                          _CHROMA_SLOT, alf_filter_chroma, alf_filter_luma,
                          block_rows, cc_filter)
-from .deblock_device import (rasterize_deblock, seg_array, luma_math,
-                             chroma_math)
+from . import deblock_device
+from .deblock_device import rasterize_deblock, luma_math, chroma_math
 from .sao_device import (_PARAM_ROWS, Slab, ctb_tables, expand_ctb,
                          pack_params, pad_edge, sao_apply)
 
@@ -63,6 +63,7 @@ _UNREAD_KEYS = frozenset({"alf0_row", "alf0_vb", "alfc_row", "alfc_vb",
 def reset_stats():
     stats.update(up_bytes=0, down_bytes=0, frames=0, build_s=0.0,
                  device_s=0.0)
+    deblock_device.reset_stats()
 
 
 def _up(a):
@@ -532,13 +533,12 @@ def build_params(sps, pps, tabs, fb, sh_list, alf_list, lmcs, recon_jobs,
     # --- deblock segments ---
     with trace.span("fused.deblock_raster"):
         for d, vertical in ((0, True), (1, False)):
-            ras = rasterize_deblock(sps, pps, tabs, fb, slice_rpls, vertical)
+            segs, counts = rasterize_deblock(sps, pps, tabs, fb, slice_rpls,
+                                             vertical)
             for c in range(nc):
-                segs = ras.luma_segs if c == 0 else \
-                    (ras.chroma_segs.get(c) or [])
-                meta[f"db{d}c{c}"] = bool(segs)
-                if segs:
-                    arrs[f"db{d}c{c}"] = _up(seg_array(segs))
+                meta[f"db{d}c{c}"] = bool(counts[c])
+                if counts[c]:
+                    arrs[f"db{d}c{c}"] = _up(segs[c])
     # --- SAO ---
     with trace.span("fused.sao_tables"):
         tables = ctb_tables(SaoFilter(sps, pps, tabs, fb), nc)

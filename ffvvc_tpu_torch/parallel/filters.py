@@ -170,15 +170,15 @@ def lmcs_batch_sharded(planes, luts, masks, cut, cs):
 def deblock_batch_sharded(planes, segs_per_frame, kind, vertical,
                           pix_max, cut):
     """One deblock direction for a batch of frames: per frame the int32
-    slabs of one plane and its segment tuples (see
-    ops/deblock_device._Rasterizer).  A slab takes the segments whose
+    slabs of one plane and its segments, tuples or an [N, 7] array (see
+    ops/deblock_device.rasterize_deblock).  A slab takes the segments whose
     writes can reach its rows, with an 8-row halo from its neighbours (the
     edge row repeated past the frame's top and bottom), and keeps the
     deltas that land in its own rows."""
     math = luma_math if kind == "luma" else chroma_math
     out = []
     for ps, segs in zip(planes, segs_per_frame):
-        if not segs:
+        if not len(segs):
             out.append(ps)
             continue
         above, below = exchange_row_halo(ps, _DB_HALO)
@@ -195,7 +195,7 @@ def deblock_batch_sharded(planes, segs_per_frame, kind, vertical,
                 p[:1].expand(_DB_HALO, -1)
             bot = below[i] if below[i] is not None else \
                 p[-1:].expand(_DB_HALO, -1)
-            s = torch.from_numpy(seg_array(near.tolist())).to(p.device)
+            s = torch.from_numpy(seg_array(near)).to(p.device)
             tall = math(torch.cat([top, p, bot]), *s.to(torch.int32).unbind(0),
                         vertical, pix_max, r0 - _DB_HALO, cut.hs)
             row.append(tall[_DB_HALO:_DB_HALO + cut.hs])
@@ -455,9 +455,9 @@ class MeshFilterQueue:
                                          q[k]["rpls"], vertical)
                        for k in idx]
             for c in range(nc):
-                segs = [r.luma_segs if c == 0 else
-                        (r.chroma_segs.get(c) or []) for r in rasters]
-                if any(segs):
+                # each frame's real segments as an [N, 7] view
+                segs = [a[c][:, :n[c]].T for a, n in rasters]
+                if any(len(s) for s in segs):
                     per_plane(c, idx, deblock_batch_sharded(
                         [planes[k][c] for k in idx], segs,
                         "luma" if c == 0 else "chroma", vertical, pix_max,

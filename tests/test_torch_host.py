@@ -39,8 +39,8 @@ FFMPEG_PREFIX = "/".join(["", "root", "reference", ""])
 
 NATIVE_C = ["vvc_parse.c", "vvc_parse.h", "vvc_mvs.c", "vvc_cabac.c",
             "vvc_cabac.h", "vvc_recon.c", "vvc_recon.h", "vvc_inter.c",
-            "vvc_intra.c", "vvc_intra.h", "vvc_mc.c", "vvc_deblock.c",
-            "vvc_sao.c", "vvc_alf.c"]
+            "vvc_intra.c", "vvc_intra.h", "vvc_mc.c", "vvc_sao.c",
+            "vvc_alf.c"]
 # copy (under ffvvc_tpu_torch/) -> original (under the repo root), equal
 # after normalisation
 SAME = {f: f"ffvvc_tpu/{f}" for f in (
@@ -60,7 +60,12 @@ DIFFER = {
     "native/recon.py": ("ffvvc_tpu/native/recon.py", 20),
     "native/intra.py": ("ffvvc_tpu/native/intra.py", 20),
     "native/mc.py": ("ffvvc_tpu/native/mc.py", 20),
-    "native/deblock.py": ("ffvvc_tpu/native/deblock.py", 20),
+    # ... and the segment emitter's binding (5 lines)
+    "native/deblock.py": ("ffvvc_tpu/native/deblock.py", 21),
+    # the segment emitter of the device deblock (deblock_frame_segments),
+    # and the per-edge derivation and CTB walk it shares with the filters
+    # (edge_params, walk_ctb_edges, frame_walk) (428 lines)
+    "native/vvc_deblock.c": ("ffvvc_tpu/native/vvc_deblock.c", 428),
     "native/sao.py": ("ffvvc_tpu/native/sao.py", 16),
     "native/alf.py": ("ffvvc_tpu/native/alf.py", 16),
     "cabac/native.py": ("ffvvc_tpu/cabac/native.py", 22),
