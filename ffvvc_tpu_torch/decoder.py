@@ -1293,8 +1293,9 @@ class VVCDecoder:
                     pending.append((coder, items, tmpl, wpp_buf, rec,
                                     job_ctus))
                 else:
-                    parse_entrypoint(coder.native_tree, coder, items, tmpl,
-                                     wpp_buf, job_ctus)
+                    with trace.span("parse.tile"):
+                        parse_entrypoint(coder.native_tree, coder, items,
+                                         tmpl, wpp_buf, job_ctus)
                     from .native.recon import make_native_recon
                     rec.native_recon = make_native_recon(coder, fb, sh.ph)
                 jobs.append((rec, job_ctus))
@@ -1348,9 +1349,14 @@ class VVCDecoder:
             from .native.recon import make_native_recon
             from .threads import run_parallel, resolve
             nt = min(resolve(self.config.parse_workers), len(pending))
+            tag = trace.current()
+
+            def parse_tile(c, it, t, w, jc):
+                with trace.handed(tag), trace.span("parse.tile"):
+                    parse_entrypoint(c.native_tree, c, it, t, w, jc)
             run_parallel(nt, [
-                (lambda c=c, it=it, t=t, w=w, jc=jc: parse_entrypoint(
-                    c.native_tree, c, it, t, w, jc))
+                (lambda c=c, it=it, t=t, w=w, jc=jc: parse_tile(
+                    c, it, t, w, jc))
                 for c, it, t, w, _r, jc in pending])
             for c, _it, _t, _w, rec, _jc in pending:
                 rec.native_recon = make_native_recon(c, fb, sh.ph)

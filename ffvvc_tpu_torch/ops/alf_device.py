@@ -29,6 +29,7 @@ as a slab of their own.
 `alf_frame_device` is the per-stage entry point (`DecoderConfig.device_alf`,
 `ffvvc_tpu/ops/alf_device.py::alf_frame_device`), which also filters
 pictures whose slices or tiles forbid filtering across their boundaries.
+`stats` counts the frames it filtered and the bytes it moved each way.
 """
 from __future__ import annotations
 
@@ -43,7 +44,7 @@ from ..alf import (ALF_VB_POS_ABOVE_CHROMA, ALF_VB_POS_ABOVE_LUMA, AlfFilter,
 from .. import trace
 from . import _build
 from .sao_device import (MIN_CTB, Slab, _log2, as_wire, count_launch,
-                         ctb_rows, one_device, stream_of)
+                         ctb_rows, download, one_device, stream_of, upload)
 
 # luma 7x7-diamond tap geometry: (row_key_a, dx_a, row_key_b, dx_b) per
 # coefficient, row keys indexing the VB-resolved row planes 0..6
@@ -62,6 +63,14 @@ _CC_TAPS = ((0, 0), (1, -1), (1, 1), (2, -1), (2, 0), (2, 1), (3, 0))
 
 # bits of a CTB's edge word: no tap from beyond that side of the CTB
 EDGE_LEFT, EDGE_TOP, EDGE_RIGHT, EDGE_BOTTOM = 1, 2, 4, 8
+
+# frames `alf_frame_device` filtered and the bytes it moved each way;
+# reset with reset_stats() (which `fused_device.reset_stats` calls)
+stats = {"frames": 0, "up_bytes": 0, "down_bytes": 0}
+
+
+def reset_stats():
+    stats.update(frames=0, up_bytes=0, down_bytes=0)
 
 
 def vb_reach(ys, cs_v, vb_pos):
@@ -426,15 +435,17 @@ def alf_frame_device(sps, pps, tabs, fb, sh_list, alf_list, device="cuda"):
         return
     if not tabs.alf_ctb_flag.any() and not tabs.alf_cc_idc.any():
         return
-    ap = fd._alf_ctb_params(sps, pps, tabs, sh_list, alf_list)
+    with trace.span("alf.build"):
+        ap = fd._alf_ctb_params(sps, pps, tabs, sh_list, alf_list)
+        words = ctb_edges(AlfFilter(sps, pps, tabs, fb, sh_list, alf_list))
     dev = torch.device(device)
     nc = 3 if sps.chroma_format_idc else 1
     cs, bd = sps.ctb_size_y, sps.bit_depth
     pix_max = (1 << bd) - 1
-    a = {k: torch.from_numpy(v).to(dev) for k, v in ap.items()}
-    edges = torch.from_numpy(ctb_edges(
-        AlfFilter(sps, pps, tabs, fb, sh_list, alf_list))).to(dev)
-    pre = [torch.from_numpy(as_wire(p)).to(dev) for p in fb.planes[:nc]]
+    with trace.span("alf.upload"):
+        a = {k: upload(v, dev, stats) for k, v in ap.items()}
+        edges = upload(words, dev, stats)
+        pre = [upload(as_wire(p), dev, stats) for p in fb.planes[:nc]]
     out = {}
     if "alf0_ctb_set" in a:
         ci, ti = fd.alf_classify_ctbs(pre[0], edges, cs, bd)
@@ -458,5 +469,8 @@ def alf_frame_device(sps, pps, tabs, fb, sh_list, alf_list, device="cuda"):
                 [a[f"cc{c}_set"] for c in on], [a[f"cc{c}_cf"] for c in on],
                 csv, csh, hs, vs, 1 << (bd - 1), pix_max, edges)
             out.update(zip(on, done))
+    with trace.span("alf.download"):
+        out = {c: download(t, stats) for c, t in out.items()}
     for c, t in out.items():
-        fb.planes[c][:] = t.cpu().numpy()
+        fb.planes[c][:] = t
+    stats["frames"] += 1

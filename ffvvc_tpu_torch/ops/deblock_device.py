@@ -29,14 +29,19 @@ import torch
 from .. import trace
 from ..deblock import Deblocker
 from ..native import deblock as _native
+from .sao_device import download, upload
 
 # directions rasterized by vvc_deblock.c's emitter and by the Python
-# fallback (_Rasterizer); reset with reset_stats()
-stats = {"raster_native": 0, "raster_python": 0}
+# fallback (_Rasterizer), whichever caller asked; frames
+# `deblock_frame_device` filtered and the bytes it moved each way; reset
+# with reset_stats() (which `fused_device.reset_stats` calls)
+stats = {"raster_native": 0, "raster_python": 0, "frames": 0, "up_bytes": 0,
+         "down_bytes": 0}
 
 
 def reset_stats():
-    stats.update(raster_native=0, raster_python=0)
+    stats.update(raster_native=0, raster_python=0, frames=0, up_bytes=0,
+                 down_bytes=0)
 
 # padded (coef, tc_weight) rows indexed by (ml - 3) // 2  ->  ml in {3,5,7}
 _COEF = np.array([[53, 32, 11, 0, 0, 0, 0],
@@ -529,26 +534,35 @@ def deblock_frame_device(sps, pps, tabs, fb, slice_rpls, device="cuda"):
     on fb.planes.  Returns False when the stream needs the host path
     (LADF reads pixel averages mid-pass).  The segments of both directions
     are rasterized first (they do not depend on the samples), then every
-    plane with an edge goes up once as 16-bit samples, through its vertical
-    and its horizontal pass, and comes down once."""
+    plane with an edge goes up once as 16-bit samples with its segments,
+    through its vertical and its horizontal pass, and comes down once."""
     if getattr(sps, "num_ladf_intervals", 0):
         return False
     dev = torch.device(device)
     pix_max = (1 << sps.bit_depth) - 1
-    passes = [(v, *rasterize_deblock(sps, pps, tabs, fb, slice_rpls, v))
-              for v in (True, False)]
-    for c in range(3 if sps.chroma_format_idc else 1):
+    with trace.span("deblock.build"):
+        passes = [(v, *rasterize_deblock(sps, pps, tabs, fb, slice_rpls, v))
+                  for v in (True, False)]
+    on = [c for c in range(3 if sps.chroma_format_idc else 1)
+          if any(counts[c] for _, _, counts in passes)]
+    if not on:
+        return True
+    with trace.span("deblock.upload"):
+        planes = {c: upload(np.ascontiguousarray(fb.planes[c], np.int16),
+                            dev, stats) for c in on}
+        segs = {(v, c): upload(arrays[c], dev, stats)
+                for v, arrays, counts in passes for c in on if counts[c]}
+    for c in on:
         math = luma_math if c == 0 else chroma_math
-        plane = None
-        for vertical, arrays, counts in passes:
-            if not counts[c]:
-                continue
-            if plane is None:
-                plane = torch.from_numpy(
-                    np.ascontiguousarray(fb.planes[c], np.int16)).to(dev)
-                plane = plane.to(torch.int32)
-            s = torch.from_numpy(arrays[c]).to(dev).to(torch.int32)
-            plane = math(plane, *s.unbind(0), vertical, pix_max)
-        if plane is not None:
-            fb.planes[c][:] = plane.to(torch.int16).cpu().numpy()
+        plane = planes[c].to(torch.int32)
+        for vertical, _, counts in passes:
+            if counts[c]:
+                s = segs[vertical, c].to(torch.int32)
+                plane = math(plane, *s.unbind(0), vertical, pix_max)
+        planes[c] = plane.to(torch.int16)
+    with trace.span("deblock.download"):
+        planes = {c: download(p, stats) for c, p in planes.items()}
+    for c, p in planes.items():
+        fb.planes[c][:] = p
+    stats["frames"] += 1
     return True

@@ -61,9 +61,12 @@ _UNREAD_KEYS = frozenset({"alf0_row", "alf0_vb", "alfc_row", "alfc_vb",
 
 
 def reset_stats():
+    """Zero this chain's counters and those of the per-stage filters."""
+    from . import alf_device, lmcs_device, sao_device
     stats.update(up_bytes=0, down_bytes=0, frames=0, build_s=0.0,
                  device_s=0.0)
-    deblock_device.reset_stats()
+    for mod in (deblock_device, sao_device, alf_device, lmcs_device):
+        mod.reset_stats()
 
 
 def _up(a):

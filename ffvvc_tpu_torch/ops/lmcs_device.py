@@ -6,7 +6,8 @@ vvc_filter_template.c:25): the inverse-mapping LUT is a [1 << bd] gather,
 gated per CTB by the owning slice's sh_lmcs_used_flag.  The per-CTB gate
 travels as it is and `fused_device.lmcs_apply`, the stage of the fused
 chain, expands it on the device.  Plain PyTorch: the JAX package has no
-kernel here either.
+kernel here either.  `stats` counts the frames it mapped and the bytes it
+moved each way.
 """
 from __future__ import annotations
 
@@ -15,7 +16,15 @@ import torch
 
 from .. import trace
 from .fused_device import lmcs_apply
-from .sao_device import as_wire
+from .sao_device import as_wire, download, upload
+
+# frames `lmcs_frame_device` mapped and the bytes it moved each way; reset
+# with reset_stats() (which `fused_device.reset_stats` calls)
+stats = {"frames": 0, "up_bytes": 0, "down_bytes": 0}
+
+
+def reset_stats():
+    stats.update(frames=0, up_bytes=0, down_bytes=0)
 
 
 @trace.traced("lmcs")
@@ -23,19 +32,24 @@ def lmcs_frame_device(sps, pps, fb, lmcs, recon_jobs, device="cuda"):
     """Apply the LMCS inverse mapping to the luma plane on `device`, in
     place on fb.planes[0].  recon_jobs carry the per-slice lmcs_used gates
     (decoder pixel stage)."""
-    used = np.zeros((pps.ctb_height, pps.ctb_width), np.int32)
-    for rec, ctus in recon_jobs:
-        if not rec.lmcs_used:
-            continue
-        for rs, rx, ry in ctus:
-            used[ry, rx] = 1
+    with trace.span("lmcs.build"):
+        used = np.zeros((pps.ctb_height, pps.ctb_width), np.int32)
+        for rec, ctus in recon_jobs:
+            if not rec.lmcs_used:
+                continue
+            for rs, rx, ry in ctus:
+                used[ry, rx] = 1
     if not used.any():
         return
     dev = torch.device(device)
     plane = fb.planes[0]
     H, W = plane.shape
-    out = lmcs_apply(torch.from_numpy(as_wire(plane)).to(dev),
-                     torch.from_numpy(np.asarray(lmcs.inv_lut,
-                                                 np.int32)).to(dev),
-                     torch.from_numpy(used).to(dev), sps.ctb_size_y, H, W)
-    plane[:] = out.to(torch.int16).cpu().numpy()
+    with trace.span("lmcs.upload"):
+        y = upload(as_wire(plane), dev, stats)
+        lut = upload(np.asarray(lmcs.inv_lut, np.int32), dev, stats)
+        mask = upload(used, dev, stats)
+    out = lmcs_apply(y, lut, mask, sps.ctb_size_y, H, W).to(torch.int16)
+    with trace.span("lmcs.download"):
+        out = download(out, stats)
+    plane[:] = out
+    stats["frames"] += 1

@@ -17,7 +17,9 @@ it filters a band of the picture's rows (the mesh's cut,
 `sao_frame_device` is the per-stage entry point (`DecoderConfig.device_sao`,
 `ffvvc_tpu/ops/sao_device.py::sao_frame_device`): planes up, one call of
 `sao_apply`, planes down.  The fused chain (`fused_device.chain`) calls
-`sao_apply` with the same tables.
+`sao_apply` with the same tables.  `stats` counts the frames it filtered
+and the bytes it moved each way; `upload` and `download` are the copies of
+all four per-stage entry points, each counting into its module's `stats`.
 """
 from __future__ import annotations
 
@@ -42,6 +44,14 @@ TABLE_ROWS = 11
 _PARAM_ROWS = ("typ", "m1", "offs", "kl", "kr", "kt", "kb", "ax", "bx")
 # the narrowest CTB the kernels' tiles are laid out for
 MIN_CTB = 16
+
+# frames `sao_frame_device` filtered and the bytes it moved each way;
+# reset with reset_stats() (which `fused_device.reset_stats` calls)
+stats = {"frames": 0, "up_bytes": 0, "down_bytes": 0}
+
+
+def reset_stats():
+    stats.update(frames=0, up_bytes=0, down_bytes=0)
 
 
 class Slab(NamedTuple):
@@ -379,6 +389,22 @@ def as_wire(plane):
     return np.ascontiguousarray(plane, dtype=np.int16)
 
 
+def upload(a, dev, counter):
+    """The host array `a` as a tensor on `dev`, its bytes counted in
+    `counter["up_bytes"]`."""
+    a = np.ascontiguousarray(a)
+    counter["up_bytes"] += a.nbytes
+    return torch.from_numpy(a).to(dev)
+
+
+def download(t, counter):
+    """The tensor `t` as a host array (waits for the card), its bytes
+    counted in `counter["down_bytes"]`."""
+    a = t.cpu().numpy()
+    counter["down_bytes"] += a.nbytes
+    return a
+
+
 @trace.traced("sao")
 def sao_frame_device(sps, pps, tabs, fb, device="cuda"):
     """Device SAO over all planes of a frame, in place on fb.planes: every
@@ -387,16 +413,21 @@ def sao_frame_device(sps, pps, tabs, fb, device="cuda"):
     if not any(int(t) for t in tabs.sao_type.flat):
         return
     nc = 3 if sps.chroma_format_idc else 1
-    tables = ctb_tables(SaoFilter(sps, pps, tabs, fb), nc)
+    with trace.span("sao.build"):
+        tables = ctb_tables(SaoFilter(sps, pps, tabs, fb), nc)
     on = [c for c in range(nc) if tables[c] is not None]
     if not on:
         return
     dev = torch.device(device)
     cs = sps.ctb_size_y
-    done = sao_apply(
-        [torch.from_numpy(as_wire(fb.planes[c])).to(dev) for c in on],
-        [torch.from_numpy(tables[c]).to(dev) for c in on],
-        [(cs >> sps.vshift[c], cs >> sps.hshift[c]) for c in on],
-        sps.bit_depth - 5, (1 << sps.bit_depth) - 1)
+    with trace.span("sao.upload"):
+        planes = [upload(as_wire(fb.planes[c]), dev, stats) for c in on]
+        prms = [upload(tables[c], dev, stats) for c in on]
+    done = sao_apply(planes, prms,
+                     [(cs >> sps.vshift[c], cs >> sps.hshift[c]) for c in on],
+                     sps.bit_depth - 5, (1 << sps.bit_depth) - 1)
+    with trace.span("sao.download"):
+        done = [download(out, stats) for out in done]
     for c, out in zip(on, done):
-        fb.planes[c][:] = out.cpu().numpy()
+        fb.planes[c][:] = out
+    stats["frames"] += 1

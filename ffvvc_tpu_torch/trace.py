@@ -36,6 +36,10 @@ The spans, by thread ("decoding" is the thread that calls `decode`;
 decoding thread):
 
   decoding  parse.slice   `VVCDecoder._parse_slice`
+            parse.tile    one entry point's batched native parse, in
+                          `parse.slice`: on a `parse_workers` thread (tagged
+                          with the decoding thread's frame) where a slice's
+                          tiles parse in parallel, else on this thread
             itx           `ops/itx.py::frame_device_residuals`
             wait.refs     blocked on reference pixels before MC: a
                           reference's rows or pixel job, the mesh's drain
@@ -62,7 +66,18 @@ decoding thread):
                           the chain's upload, its launches and the download
                           that waits for the card
             lmcs, deblock, sao, alf
-                          the per-stage filters, device or host
+                          the per-stage filters, device or host; in each
+                          device one (`ops/<stage>_device.py`):
+            lmcs.build, deblock.build, sao.build, alf.build
+                          its host parameter build: the CTB mask; both
+                          directions' deblock segments; the SAO tables with
+                          their restore ranges; the ALF parameters and edge
+                          words
+            lmcs.upload, deblock.upload, sao.upload, alf.upload
+                          its host-to-device copies
+            lmcs.download, deblock.download, sao.download, alf.download
+                          its device-to-host copies, which wait for the
+                          card
             rows          the row-granular host pipeline
 """
 from __future__ import annotations
@@ -245,6 +260,17 @@ def job(tag, submitted):
 def enter(tag):
     """Tag the calling thread's spans with `tag` from now on."""
     _local.frame = tag
+
+
+def current():
+    """The calling thread's tag: None outside a decode call or pixel job."""
+    return _local.frame
+
+
+def handed(tag):
+    """Around work that a thread tagged `tag` (its `current()`) hands to
+    this one: tags this thread's spans with `tag` meanwhile."""
+    return _Tagged(tag) if tag is not None else _OFF
 
 
 def spans():

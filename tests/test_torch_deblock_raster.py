@@ -105,11 +105,14 @@ def test_raster_counter_and_python_fallback(monkeypatch):
     assert md5(VVCDecoder(DecoderConfig(device="cpu", device_pipeline=True)
                           ).decode(s)) == want
     assert fd.stats["frames"] == 3
-    assert dd.stats == {"raster_native": 6, "raster_python": 0}
+    # the fused chain rasterized; the per-stage deblock moved nothing
+    assert dd.stats == {"raster_native": 6, "raster_python": 0, "frames": 0,
+                        "up_bytes": 0, "down_bytes": 0}
 
     monkeypatch.setattr(native_deblock, "load_lib", lambda: None)
     fd.reset_stats()
     assert md5(VVCDecoder(DecoderConfig(device="cpu", device_pipeline=True)
                           ).decode(s)) == want
     assert fd.stats["frames"] == 3
-    assert dd.stats == {"raster_native": 0, "raster_python": 6}
+    assert dd.stats == {"raster_native": 0, "raster_python": 6, "frames": 0,
+                        "up_bytes": 0, "down_bytes": 0}

@@ -76,8 +76,9 @@ DIFFER = {
     # the reference's _decode_frame, mesh included, with backend "cuda" and
     # the torch device passed to every device stage (70 lines); trace.py's
     # spans, waits and frame tags in place of its per-stage clock, most of
-    # them blocks indented under a span (169 lines)
-    "decoder.py": ("ffvvc_tpu/decoder.py", 239),
+    # them blocks indented under a span (169 lines); the `parse.tile` span
+    # of each tile entry point, on the thread that parses it (14 lines)
+    "decoder.py": ("ffvvc_tpu/decoder.py", 253),
     # no path set-up (7 lines)
     "tools/forge.py": ("tools/forge.py", 7),
     # spawned GOP workers when a stage runs on CUDA, pools keyed by start
