@@ -56,7 +56,12 @@ Phases, each of which raises on a fault (the script then exits non-zero):
    the inverse transform for DCT2, DST7 and DCT8 at every size from 1xN to
    64x64 with coefficients at +-(2^15 - 1) against the NumPy int64 version
    (its float64 products must be the exact integers), with its time beside
-   an int64 multiply-and-sum; dequantisation; the residual scatter.
+   an int64 multiply-and-sum; dequantisation; the residual scatter.  The
+   hand-written put kernel of device MC (csrc/mc.cu) against its plain
+   twin on the CPU, torch.equal: one table of every variant (four classes,
+   luma and chroma, 2x2 to 128x128, PROF and BDOF rings, wraparound, boxes,
+   blocks over each border) on 1080p planes at 8, 10 and 12 bits, whole
+   and in the three parts a mesh of three tiles launches.
 6. Inter frames: `inter-b`, a 1080p10 hierarchical stream (IDR, P, B with a
    past and a future reference: DMVR and BDOF armed) with deblock, SAO, ALF
    and CC-ALF, decoded by the host, by device_mc alone (once as it comes,
@@ -65,7 +70,10 @@ Phases, each of which raises on a fault (the script then exits non-zero):
    inter frames) and by device_mc with device_pipeline and row progress off
    (the whole-frame form, the hand kernels on the same frames); all
    md5-equal; all four put
-   classes, DMVR and BDOF counted.  Per inter frame: descriptors, buckets,
+   classes, DMVR and BDOF counted; on the card every call's puts in one
+   put-kernel launch and none eager.  The largest row band's put table and
+   the largest whole frame's replayed: the kernel's device time, bytes and
+   bound beside its whole wrapper and its plain twin.  Per inter frame: descriptors, buckets,
    batched calls, MB up and down and the ms of the MC stage beside the host
    C MC's.  Then the other inter tools at 416x240 through device_mc (affine
    with PROF, SbTMVP, GPM, weighted P and bi, BCW, wraparound, mono LMCS,
@@ -149,8 +157,8 @@ from ffvvc_tpu_torch.ops import fused_device as fd  # noqa: E402
 from ffvvc_tpu_torch.ops import inter_device, itx, mc_device  # noqa: E402
 from ffvvc_tpu_torch.ops import intra_device as idv  # noqa: E402
 from ffvvc_tpu_torch.ops.kernel_inputs import (  # noqa: E402
-    alf_chroma_inputs, alf_luma_inputs, cc_inputs, edge_words, sao_inputs,
-    sao_restore_inputs)
+    alf_chroma_inputs, alf_luma_inputs, cc_inputs, edge_words, put_inputs,
+    sao_inputs, sao_restore_inputs)
 from ffvvc_tpu_torch.ops.sao_device import Slab  # noqa: E402
 from ffvvc_tpu_torch.parallel import filters as PF  # noqa: E402
 from ffvvc_tpu_torch.pipeline import _decode_segment  # noqa: E402
@@ -743,6 +751,7 @@ def check_functions(dev, smi):
     print(f"functions: puts equal on {dev} and cpu: {n} buckets (luma and "
           "chroma, 4 classes, plain, wraparound and boxed, origins outside "
           "the picture, 8, 10 and 12 bits)")
+    check_put_kernel(dev, rng, smi)
     n = 0
     dfilt = mc_device._dmvr_filters()
     for bd in (10, 12):
@@ -879,6 +888,108 @@ def check_functions(dev, smi):
               f"ms [{smi}]")
 
 
+def check_put_kernel(dev, rng, smi):
+    """The put kernel (csrc/mc.cu, through mc_device.put_table) against its
+    plain twin on the CPU, torch.equal: one table of every variant
+    (`put_inputs`: 4 classes, luma and chroma, 2x2 to 128x128, PROF and
+    BDOF rings, wraparound, boxes past the plane, blocks over each border)
+    on W x H planes at 8, 10 and 12 bits, and each part a mesh of three
+    tiles would launch; synchronised after every launch."""
+    n = rows = 0
+    for bd in (8, 10, 12):
+        planes, buckets = put_inputs(rng, H, W, bd)
+        table, _ = mc_device.put_table_of(buckets)
+        cpu = [torch.from_numpy(p) for p in planes]
+        on = [p.to(dev) for p in cpu]
+        k = len(table.jobs)
+        for lo, hi in ((0, k), (0, k // 3), (k // 3, 2 * k // 3),
+                       (2 * k // 3, k)):
+            part = table if (lo, hi) == (0, k) else table.part(lo, hi)
+            got = mc_device.put_table(on, part, bd)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            want = mc_device.put_table(cpu, part, bd)
+            if got.device.type != dev.type or not torch.equal(got.cpu(),
+                                                               want):
+                bad = (got.cpu() != want).nonzero()[:5].flatten().tolist()
+                raise AssertionError(
+                    f"put kernel at {bd} bits, rows [{lo}, {hi}) differs "
+                    f"from its twin at outputs {bad}")
+            n += 1
+            rows += len(part.jobs)
+    print(f"functions: put kernel equal to its twin on {dev}: {n} launches "
+          f"of {rows} rows ({len(buckets)} buckets a table: 4 classes, luma "
+          "and chroma, 2x2 to 128x128, PROF and BDOF rings, wraparound, "
+          f"boxes, blocks over every border) on {W}x{H} planes at 8, 10 and "
+          f"12 bits [{smi}]")
+
+
+def put_bytes(table):
+    """Bytes one launch of the put kernel moves: the table up, each row's
+    window of 16-bit samples (read once a row) and its int32 outputs."""
+    j = table.jobs
+    size = np.repeat(np.array([r[:2] for r in table.runs]),
+                     [r[3] for r in table.runs], axis=0).astype(np.int64)
+    ext = np.where((j[:, 3] >> 16) & 1, 7, 3)
+    fc = (j[:, 3] >> 17) & 3
+    win = (size[:, 0] + (fc & 1) * ext) * (size[:, 1] + (fc >> 1) * ext)
+    words = mc_device.PLANE_COLS * (int((j[:, 3] & 0xFFFF).max()) + 1) + \
+        mc_device.CLASS_COLS * len(table.runs) + j.size
+    return 4 * words + 2 * int(win.sum()) + 4 * table.n_out
+
+
+def time_put_table(label, planes, table, bd, smi):
+    """One captured put table replayed on the card: the kernel's device us
+    a launch (a CUDA graph of its launches), its bytes and their bound at
+    PEAK_BYTES_S, the whole wrapper (pack, upload, launch, with the host),
+    and the plain twin on the same tensors; the kernel's output equals
+    the twin's."""
+    dev = planes[0].device
+    classes, blocks, smem = table.layout()
+    tab = torch.from_numpy(table.packed(planes, classes)).to(dev)
+    out = torch.empty(table.n_out, dtype=torch.int32, device=dev)
+    us = graph_ms([lambda: mc_device._put_launch(
+        tab, len(planes), classes, blocks, smem, out, bd)]) * 1e3
+    want = mc_device.put_table_ref(planes, table, bd)
+    if not torch.equal(out, want):
+        raise AssertionError(f"put kernel on the {label} table differs "
+                             "from its twin")
+    call = time_ms(lambda: mc_device.put_table(planes, table, bd))
+    plain = time_ms(lambda: mc_device.put_table_ref(planes, table, bd), n=3)
+    nbytes = put_bytes(table)
+    groups = len(np.unique(table.jobs[:, 3:5], axis=0))
+    print(f"[inter-b] put kernel, {label}: {len(table.jobs)} rows, "
+          f"{len(table.runs)} sizes, >= {groups} buckets, {blocks} CUDA "
+          f"blocks, {smem} B shared a block; device {us:.2f} us a launch, "
+          f"{nbytes / 1e6:.3f} MB, bound {nbytes / PEAK_BYTES_S * 1e6:.2f} "
+          f"us at 3.35 TB/s ({nbytes / PEAK_BYTES_S * 1e8 / us:.1f}%); the "
+          f"wrapper (pack, upload, launch) {call:.3f} ms; the plain twin "
+          f"{plain:.2f} ms [{smi}]")
+    return us
+
+
+class PutLog:
+    """Records the put table of every frame_device_mc call of a decode (its
+    planes, table and bit depth) and counts the eager per-bucket puts."""
+
+    def __enter__(self):
+        self.tables, self.eager = [], 0
+        self.orig = mc_device._put_sharded, mc_device._put_bucket
+
+        def put(planes, table, mesh, bd):
+            self.tables.append((planes, table, bd))
+            return self.orig[0](planes, table, mesh, bd)
+
+        def bucket(*a):
+            self.eager += 1
+            return self.orig[1](*a)
+        mc_device._put_sharded, mc_device._put_bucket = put, bucket
+        return self
+
+    def __exit__(self, *exc):
+        mc_device._put_sharded, mc_device._put_bucket = self.orig
+
+
 def forge_hier_alf(seed, width, height, qp, bit_depth, **sps_kw):
     """The forge's hierarchical GOP (forge_hier_stream with one GOP: an IDR,
     a P frame at POC 2 and a B frame at POC 1 between them, whose one past
@@ -983,11 +1094,14 @@ class LatePixels(concurrent.futures.ThreadPoolExecutor):
 
 
 def mc_decode(tag, stream, ref_md5, host_mc, smi, n_inter, late_pixels=0.0,
-              **toggles):
+              keep=None, **toggles):
     """One decode through device_mc on DEVICE, checked against the host
     decode's md5; prints what the device MC did per inter frame, beside
     `host_mc`, the ms the host C MC takes for one, and its phases' ms from
-    the decode's spans.  Returns the mc_device.stats of the decode."""
+    the decode's spans.  On the card every call's puts must go through one
+    launch of the put kernel and none through the eager per-bucket path.
+    Appends the put tables to `keep` when given.  Returns the
+    mc_device.stats of the decode."""
     from ffvvc_tpu_torch import DecoderConfig, VVCDecoder
     mc_device.reset_stats()
     fd.reset_stats()
@@ -996,10 +1110,12 @@ def mc_decode(tag, stream, ref_md5, host_mc, smi, n_inter, late_pixels=0.0,
     if late_pixels:
         dec._pix_exec = LatePixels(late_pixels)
     trace.clear()
-    with McLog() as log:
+    with McLog() as log, PutLog() as puts:
         t0 = time.monotonic()
         frames = dec.decode(stream)
         dt = time.monotonic() - t0
+    if keep is not None:
+        keep += puts.tables
     phases = {}             # decode sequence number -> {phase: seconds}
     for sp in trace.spans():
         if sp.name.startswith("mc."):
@@ -1017,6 +1133,15 @@ def mc_decode(tag, stream, ref_md5, host_mc, smi, n_inter, late_pixels=0.0,
     if md5 != ref_md5:
         raise AssertionError(f"{tag} device_mc decode md5 {md5} != host "
                              f"{ref_md5}")
+    print(f"{tag} put kernel: {stats['put_kernel_launches']} launches for "
+          f"{stats['calls']} frame_device_mc calls ({len(puts.tables)} put "
+          f"tables), {puts.eager} eager per-bucket puts")
+    # (a call whose blocks are all intra or CIIP has no puts)
+    if DEVICE == "cuda" and (
+            stats["put_kernel_launches"] != len(puts.tables) or
+            not 0 < len(puts.tables) <= stats["calls"] or puts.eager):
+        raise AssertionError(f"{tag} puts did not all go through one "
+                             "kernel launch a call")
     per_frame = log.frames()
     if len(per_frame) != n_inter:
         raise AssertionError(f"{tag} device MC ran on {len(per_frame)} of "
@@ -1030,7 +1155,8 @@ def mc_decode(tag, stream, ref_md5, host_mc, smi, n_inter, late_pixels=0.0,
               f"prefetch buckets, {d['dmvr_subblocks']} DMVR subblocks, "
               f"{d['bdof_blocks']} BDOF blocks, {d['prof_blocks']} PROF "
               f"blocks, {d['finals_buckets']} finals buckets, "
-              f"{d['launches']} batched calls, {d['up_bytes'] / 1e6:.3f} MB "
+              f"{d['launches']} batched calls ({d['put_kernel_launches']} "
+              f"of the put kernel), {d['up_bytes'] / 1e6:.3f} MB "
               f"up, {d['down_bytes'] / 1e6:.3f} MB down, {secs * 1e3:.1f} ms "
               f"in the MC stage (host C MC {host_mc:.1f} ms): "
               f"{json.dumps(shares)} [{smi}]")
@@ -1067,8 +1193,9 @@ def inter_b(smi):
     # on whether the references' pixel stages have ended by then
     mc_decode(tag + "[default]", stream, ref_md5, host_mc, smi, n_inter)
     # the row-band form: row progress on and the references still in flight
+    bands, wholes = [], []
     stats = mc_decode(tag + "[rows]", stream, ref_md5, host_mc, smi, n_inter,
-                      late_pixels=1.0)
+                      late_pixels=1.0, keep=bands)
     if stats["calls"] <= n_inter:
         raise AssertionError(f"{tag} the row-band form made "
                              f"{stats['calls']} calls for {n_inter} frames")
@@ -1076,7 +1203,8 @@ def inter_b(smi):
     # on the same frames: counts from zero just before, read just after
     reset_launches()
     stats = mc_decode(tag + "[whole+fused]", stream, ref_md5, host_mc, smi,
-                      n_inter, device_pipeline=True, row_progress=False)
+                      n_inter, device_pipeline=True, row_progress=False,
+                      keep=wholes)
     launches = {k: fn.launches - fn.edge_launches
                 for k, (fn, which, _, _) in KERNELS.items()
                 if which != "edges" and "/" not in k}
@@ -1092,6 +1220,14 @@ def inter_b(smi):
             and stats["bdof_blocks"]):
         raise AssertionError(f"{tag} a put class, DMVR or BDOF never ran: "
                              f"{stats}")
+    if DEVICE == "cuda":
+        # the largest row band's table and the largest whole frame's,
+        # replayed: the kernel's device time beside its bound and the twin
+        for label, kept in (("row band", bands), ("whole frame", wholes)):
+            planes, table, bd = max(kept, key=lambda t: len(t[1].jobs))
+            time_put_table(f"{label} (largest of {len(kept)})", planes,
+                           table, bd, smi)
+    del bands, wholes
     # the three toggles together: the IDR through device intra, the P and B
     # frames through device MC, the fused chain on all three
     idv.reset_stats()

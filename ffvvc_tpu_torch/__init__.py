@@ -6,7 +6,8 @@ under the same names; its C libraries and the CUDA kernels are built from
 this package's sources into `ffvvc_tpu_torch/build/` at first use.  The
 device half is ported: the fused post-recon filter chain
 (`ops/fused_device.py`) runs in PyTorch, with SAO, ALF and CC-ALF as CUDA
-kernels written by hand for Hopper (`csrc/filters.cu`).
+kernels written by hand for Hopper (`csrc/filters.cu`); device MC's puts
+are one hand-written kernel launch a call (`csrc/mc.cu`).
 
     from ffvvc_tpu_torch import DecoderConfig, VVCDecoder
     frames = VVCDecoder(DecoderConfig(device_pipeline=True)).decode(data)

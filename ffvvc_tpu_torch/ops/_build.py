@@ -1,12 +1,13 @@
-"""Build and load the port's CUDA kernels (csrc/filters.cu).
+"""Build and load the port's CUDA kernels (csrc/filters.cu, csrc/mc.cu).
 
-nvcc compiles the source into a shared library with a plain C interface
+nvcc compiles the sources into one shared library with a plain C interface
 (no PyTorch headers: seconds, not minutes), by the scheme the host half's C
 libraries use (`native/_build.py`: named by a hash of source and flags,
 written to a temporary name and moved into place):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o ffvvc_tpu_torch/build/libffvvc_filters-<hash>.so
+         csrc/filters.cu csrc/mc.cu
 
 The library is loaded with ctypes, every argtype declared.  A missing nvcc
 or a failed build raises RuntimeError; nothing falls back to the plain
@@ -23,6 +24,8 @@ from ..native import _build as _shared
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "filters.cu")
+MC_SOURCE = os.path.join(_PKG, "csrc", "mc.cu")
+SOURCES = [SOURCE, MC_SOURCE]
 BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
@@ -43,6 +46,9 @@ _SIGNATURES = {
     # log2_cs_v, log2_cs_h, hs, vs, half, pix_max, stream
     "ffvvc_cc": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                  _P],
+    # planes, classes, n_classes, jobs, lf, cf, out, n_blocks, smem, bd,
+    # stream
+    "ffvvc_mc_put": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -63,7 +69,7 @@ def find_nvcc():
 
 
 def library_path():
-    return _shared.library_path("ffvvc_filters", [SOURCE], [], NVCC_FLAGS,
+    return _shared.library_path("ffvvc_filters", SOURCES, [], NVCC_FLAGS,
                                 BUILD_DIR)
 
 
@@ -76,7 +82,7 @@ def _build():
         raise RuntimeError(
             "cannot build the CUDA kernels: nvcc not found (looked in "
             "$CUDA_HOME/bin, PATH and /usr/local/cuda/bin)")
-    return _shared.build_shared(nvcc, NVCC_FLAGS, [SOURCE], [],
+    return _shared.build_shared(nvcc, NVCC_FLAGS, SOURCES, [],
                                 "ffvvc_filters", BUILD_DIR)
 
 

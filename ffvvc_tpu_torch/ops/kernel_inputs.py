@@ -1,8 +1,8 @@
-"""Seeded NumPy inputs for the SAO, ALF and CC-ALF kernels.
+"""Seeded NumPy inputs for the SAO, ALF, CC-ALF and MC put kernels.
 
 The kernels' checks (chip_smoke.py on the card, tests/test_torch_kernels.py
-on the CPU against the JAX package) feed them the parameter layouts the
-fused chain builds, with random values from a numpy Generator.
+and tests/test_torch_mc.py on the CPU) feed them the parameter layouts the
+fused chain and device MC build, with random values from a numpy Generator.
 """
 from __future__ import annotations
 
@@ -120,3 +120,56 @@ def sao_restore_inputs(rng, H, W, cs_v, cs_h, bd):
         on = (tab[0] == 2) & (rng.integers(0, 2, (ch, cw)) != 0) & (lo < hi)
         tab[row] = np.where(on, lo | (hi << 16), 0)
     return _samples(rng, (H, W), bd), tab
+
+
+# (w, h, is_luma) of the puts device MC sends: luma and chroma blocks from
+# 2x2 to 128x128, and (copies only) the 6x6 PROF rings and the (w + 2) x
+# (h + 2) BDOF rings of 8x8, 16x8 and 16x16 subblocks
+PUT_SIZES = ((4, 4), (8, 4), (4, 8), (8, 8), (16, 16), (32, 16), (8, 32),
+             (64, 64), (128, 128))
+PUT_CHROMA_SIZES = ((2, 2), (2, 4), (4, 2), (4, 4), (8, 8), (16, 16),
+                    (32, 32), (64, 64))
+PUT_RINGS = ((6, 6), (10, 10), (18, 10), (18, 18))
+
+
+def put_inputs(rng, H, W, bd, blocks=4):
+    """Reference planes (int16 luma [H, W], chroma [H / 2, W / 2]) and put
+    buckets in `mc_device.put_table_of`'s form, one for each variant of the
+    put kernel: the four filter classes of every size in PUT_SIZES (luma)
+    and PUT_CHROMA_SIZES (chroma), the rings of PUT_RINGS as copies, each
+    plain, with horizontal wraparound, with DMVR boxes (some reaching past
+    the plane) and with both.  A bucket's first four blocks overhang the
+    plane's left, right, top and bottom border; the others lie anywhere
+    from a block's width outside to inside."""
+    planes = [_samples(rng, (H, W), bd), _samples(rng, (H // 2, W // 2), bd)]
+    kinds = [(w, h, True, range(4)) for w, h in PUT_SIZES] + \
+        [(w, h, False, range(4)) for w, h in PUT_CHROMA_SIZES] + \
+        [(w, h, True, (0,)) for w, h in PUT_RINGS]
+    buckets = []
+    for w, h, luma, fclasses in kinds:
+        k = 0 if luma else 1
+        ph, pw = planes[k].shape
+        fmax = 16 if luma else 32
+        for fclass in fclasses:
+            for wrap, boxed in ((0, False), (pw - 8, False), (0, True),
+                                (pw - 8, True)):
+                xs = rng.integers(-w - 8, pw + 8, blocks)
+                ys = rng.integers(-h - 8, ph + 8, blocks)
+                for i, (axis, v) in enumerate(
+                        ((0, -w // 2 - 3), (0, pw - w // 2),
+                         (1, -h // 2 - 3), (1, ph - h // 2))[:blocks]):
+                    (xs, ys)[axis][i] = v
+                cols = [xs, ys,
+                        rng.integers(1, fmax, blocks) * (fclass & 1),
+                        rng.integers(1, fmax, blocks) * (fclass >> 1)]
+                if boxed:
+                    x0 = rng.integers(-4, pw, blocks)
+                    y0 = rng.integers(-4, ph, blocks)
+                    cols += [x0, x0 + rng.integers(0, 2 * w + 8, blocks),
+                             y0, y0 + rng.integers(0, 2 * h + 8, blocks)]
+                hf = int(rng.integers(0, 3))
+                vf = hf if rng.integers(0, 2) else int(rng.integers(0, 3))
+                buckets.append((k, (ph, pw),
+                                np.stack(cols, 1).astype(np.int32), w, h,
+                                luma, hf, vf, fclass, wrap, boxed))
+    return planes, buckets

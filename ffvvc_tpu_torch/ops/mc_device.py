@@ -21,38 +21,53 @@ per-4x4 BDOF solves and the TMVP col-grid writeback (the reference
 interleaves these per CTU inside the inter task, vvc_inter.c:642-760;
 hoisting the refine to a frame phase is what makes it batchable).
 
+The puts of one `frame_device_mc` call go to the device as one table
+(`PutTable`: an int32 row a block, ordered by block size) and run as one
+launch of the hand-written `mc_put_kernel` (csrc/mc.cu) on CUDA tensors
+(`put_table`); on CPU tensors `put_table_ref` groups the rows back into
+buckets and runs `_mc_put_math`, the kernel's plain twin.  Every output
+lands in one int32 buffer, each block size's outputs together, which PROF,
+the BDOF rings and the finals read as [N, h, w] views.
+
 What stays on the device within one `frame_device_mc` call: each reference
 plane (uploaded once, as 16-bit samples), every put output through PROF
 and the finals; a finals bucket comes down once, as 16-bit pixels.
 Integer width: int32, and int64 where the golden model needs it (GPM and
 the weighted finals).
 
-On a mesh (`parallel/mesh.py`) the blocks of a put bucket split over the
-"tile" axis: each part goes to its device with the reference plane, and
-the outputs come back to the call's device in order (`sharded_puts`; the
-plane's bytes each other device received: `sharded_ref_bytes`).
+On a mesh (`parallel/mesh.py`) the rows of a call's put table split over
+the "tile" axis: each part goes to its device with the reference planes it
+reads, and the outputs come back into the call's buffer in order
+(`sharded_puts`; the planes' bytes each other device received:
+`sharded_ref_bytes`).
 """
 from __future__ import annotations
 
 import functools
+import itertools
 
 import numpy as np
 import torch
 
 from .. import trace
+from . import _build
 from .inter_device import _bdof, _dmvr_refine
-from .sao_device import as_wire
+from .sao_device import as_wire, count_launch, one_device, stream_of
 
 I32, I64 = torch.int32, torch.int64
 
 # What the calls since reset_stats() did.  `launches` counts batched device
-# calls (one put, prefetch, refine, PROF or finals bucket each), not CUDA
-# kernels.  Where the time goes is in the spans of `frame_device_mc`
-# (trace.py: `mc` and its phases `mc.collect` ... `mc.writeback`).
+# calls (a put table's kernel launch, or one put bucket of the plain twin,
+# prefetch, refine, PROF or finals bucket each), not CUDA kernels;
+# `put_kernel_launches` the launches of the put kernel (one a call and
+# device).  `put_buckets` counts the distinct put groups (reference plane,
+# size, filter class, wrap, box), whichever way they ran.  Where the time
+# goes is in the spans of `frame_device_mc` (trace.py: `mc` and its phases
+# `mc.collect` ... `mc.writeback`).
 _COUNTS = ("calls", "descriptors", "put_buckets", "put_blocks",
-           "bilin_buckets", "dmvr_subblocks", "bdof_blocks", "prof_blocks",
-           "gpm_blocks", "weighted_blocks", "finals_buckets", "launches",
-           "up_bytes", "down_bytes")
+           "put_kernel_launches", "bilin_buckets", "dmvr_subblocks",
+           "bdof_blocks", "prof_blocks", "gpm_blocks", "weighted_blocks",
+           "finals_buckets", "launches", "up_bytes", "down_bytes")
 stats = {}
 
 
@@ -326,7 +341,7 @@ def _mc_uni_w_batch(val, denom, wx, ox, bd: int):
 
 def _put_bucket(ref, prm, w, h, is_luma, bd, hf_idx, vf_idx, fclass, wrap,
                 boxed):
-    """One put bucket on the device: ref [H, W] int32, prm [B, 4 or 8]
+    """One put bucket in plain PyTorch: ref [H, W] int32, prm [B, 4 or 8]
     int32 = (x, y, frac_x, frac_y[, box x0, x1, y0, y1]) per block."""
     lf, cf = _filter_banks(str(ref.device))
     bank = lf[hf_idx] if is_luma else cf[hf_idx]
@@ -338,35 +353,258 @@ def _put_bucket(ref, prm, w, h, is_luma, bd, hf_idx, vf_idx, fclass, wrap,
                         int(fclass), int(wrap), boxed)
 
 
-# mesh-sharded puts: the batch axis of a bucket partitions over the "tile"
-# mesh axis (the reference plane copied to each device, which gathers its
-# own blocks), the outputs concatenate back.  The form of the reference's
-# per-CTU inter tasks running on every worker (vvc_thread.c:432-450).
-sharded_puts = 0      # diagnostic counter (tests assert engagement)
-# bytes of reference plane copied to each other device for a split bucket
-# ({str(device): bytes}; none when a tile's device is the plane's own)
+# ---- the put table: every put of a call in one launch -----------------------
+
+TILE = 16          # the largest side of an output tile of csrc/mc.cu
+THREADS = 256      # the threads of one of its CUDA blocks
+HALO = 7           # the luma filter's taps - 1
+PLANE_COLS, CLASS_COLS, JOB_COLS = 4, 10, 8
+SMEM_LIMIT = 48 * 1024   # dynamic shared memory a block gets unasked
+
+
+class PutTable:
+    """The puts of one call, an int32 row a block, in the layout that
+    `mc_put_kernel` (csrc/mc.cu) reads.
+
+    jobs [N, 8]: x, y, frac_x | frac_y << 8, plane | luma << 16 | fclass
+    << 17 | hf << 19 | vf << 21 | boxed << 23, wrap, box x0 | x1 << 16, box
+    y0 | y1 << 16, and the offset of the block's h x w outputs (row by row)
+    in the call's int32 buffer.  A box is clipped into its plane, which
+    leaves the clamp of every sample as it was.  The rows are ordered by
+    block size, so that each size's outputs lie together: `runs` holds
+    (w, h, first row, rows) of each size in that order."""
+
+    def __init__(self, jobs, runs):
+        self.jobs, self.runs = jobs, runs
+        self.n_out = int(jobs[-1, 7]) + runs[-1][0] * runs[-1][1] \
+            if len(jobs) else 0
+
+    def part(self, lo, hi):
+        """Rows [lo, hi) as a table of their own, offsets from 0: its
+        outputs are those from jobs[lo, 7] on in this one's buffer."""
+        jobs = self.jobs[lo:hi].copy()
+        jobs[:, 7] -= self.jobs[lo, 7]
+        runs = [(w, h, max(j0, lo) - lo, min(j0 + n, hi) - max(j0, lo))
+                for w, h, j0, n in self.runs if j0 < hi and j0 + n > lo]
+        return PutTable(jobs, runs)
+
+    def layout(self):
+        """The kernel's classes [C, 10], one a size (w, h, the output tile
+        tw x th, tiles across, tiles a row, units a CUDA block, first
+        row, rows, first CUDA block), the number of CUDA blocks and the
+        dynamic shared memory one needs: a window of (th + 7) x (tw + 7)
+        int16 samples (an even number) and (th + 7) x tw int32 of the
+        horizontal pass a unit."""
+        rows, blocks, smem = [], 0, 0
+        for w, h, j0, n in self.runs:
+            tx, ty = -(-w // TILE), -(-h // TILE)
+            tw, th = -(-w // tx), -(-h // ty)
+            upb = THREADS // (tw * th)
+            rows.append((w, h, tw, th, tx, tx * ty, upb, j0, n, blocks))
+            blocks += -(-n * tx * ty // upb)
+            win = ((th + HALO) * (tw + HALO) + 1) & ~1
+            smem = max(smem, upb * (2 * win + 4 * (th + HALO) * tw))
+        return np.array(rows, np.int32).reshape(-1, CLASS_COLS), blocks, smem
+
+    def packed(self, planes, classes):
+        """The one int32 array that goes up: planes [P, 4] (the device
+        address in two words, W, H; zeros for None), classes, jobs."""
+        head = np.zeros((len(planes), PLANE_COLS), np.int32)
+        for k, p in enumerate(planes):
+            if p is not None:
+                head[k, :2] = np.array([p.data_ptr()], np.uint64).view(
+                    np.int32)
+                head[k, 2:] = p.shape[1], p.shape[0]
+        return np.concatenate([head.ravel(), classes.ravel(),
+                               self.jobs.ravel()])
+
+
+def put_table_of(buckets):
+    """The put table of `buckets`: [(plane index, (H, W) of the plane, rows
+    [B, 4 or 8] of (x, y, frac_x, frac_y[, box x0, x1, y0, y1]), w, h,
+    is_luma, hf_idx, vf_idx, fclass, wrap, boxed)].  Returns it and, for
+    each bucket, ((w, h), the index of its first block among its size's)."""
+    order = sorted(range(len(buckets)), key=lambda i: buckets[i][3:5])
+    attrs = []            # per bucket in order: flags, wrap, area, W, H
+    first = [((b[3], b[4]), 0) for b in buckets]
+    runs = []
+    lo = 0
+    for i in order:
+        k, (H, W), rows, w, h, luma, hf, vf, fclass, wrap, box = buckets[i]
+        m = len(rows)
+        attrs.append((int(k) | int(luma) << 16 | int(fclass) << 17 |
+                      int(hf) << 19 | int(vf) << 21 | int(box) << 23, wrap,
+                      w * h, W, H, m))
+        if not m:
+            continue
+        if runs and runs[-1][:2] == [w, h]:
+            runs[-1][3] += m
+        else:
+            runs.append([w, h, lo, m])
+        first[i] = ((w, h), lo - runs[-1][2])
+        lo += m
+    A = np.array(attrs, np.int64).reshape(-1, 6)
+    counts = A[:, 5]
+    jobs = np.zeros((lo, JOB_COLS), np.int32)
+    jobs[:, 3] = np.repeat(A[:, 0], counts)
+    jobs[:, 4] = np.repeat(A[:, 1], counts)
+    area = np.repeat(A[:, 2], counts)
+    end = np.cumsum(area)
+    if lo and end[-1] > np.iinfo(np.int32).max:
+        raise ValueError(f"put table: {end[-1]} outputs overflow int32")
+    jobs[:, 7] = end - area
+    # the rows, unboxed and boxed apart, each converted in one pass
+    boxed = (A[:, 0] >> 23 & 1).astype(bool)
+    at = np.repeat(boxed, counts) if boxed.any() else slice(None)
+    for sel, cols in ((False, 4), (True, 8)):
+        seq = [buckets[i][2] for i, b in zip(order, boxed) if b == sel]
+        m = int(counts[boxed == sel].sum())
+        if not m:
+            continue
+        prm = np.fromiter(
+            itertools.chain.from_iterable(itertools.chain.from_iterable(seq)),
+            np.int32, m * cols).reshape(m, cols)
+        rows = (~at if sel is False else at) if boxed.any() else at
+        jobs[rows, 0:2] = prm[:, 0:2]
+        jobs[rows, 2] = prm[:, 2] | prm[:, 3] << 8
+        if sel:
+            lim = np.repeat(A[boxed, 3:5] - 1, counts[boxed], axis=0)
+            bx = np.clip(prm[:, 4:6], 0, lim[:, 0:1])
+            by = np.clip(prm[:, 6:8], 0, lim[:, 1:2])
+            jobs[rows, 5] = bx[:, 0] | bx[:, 1] << 16
+            jobs[rows, 6] = by[:, 0] | by[:, 1] << 16
+    return PutTable(jobs, [tuple(r) for r in runs]), first
+
+
+def put_table_ref(planes, table, bd):
+    """The plain twin of `mc_put_kernel`: the rows of `table` grouped back
+    into buckets by (size, plane and flags, wrap), each through
+    `_put_bucket`, its outputs written at their offsets.  Runs on the
+    planes' device (int16 or int32 [H, W]; None where the table reads
+    none); returns int32 [table.n_out]."""
+    dev = one_device("put_table_ref", planes)
+    out = torch.empty(table.n_out, dtype=I32, device=dev)
+    jobs = table.jobs
+    if not len(jobs):
+        return out
+    size = np.repeat(np.array([r[:2] for r in table.runs], np.int64),
+                     [r[3] for r in table.runs], axis=0)
+    groups, inv = np.unique(np.concatenate([size, jobs[:, 3:5]], 1),
+                            axis=0, return_inverse=True)
+    inv = inv.reshape(-1)
+    order = np.argsort(inv, kind="stable")
+    wide = {}
+    for (w, h, flags, wrap), rows in zip(
+            groups.tolist(), np.split(order, np.cumsum(np.bincount(inv))[:-1])):
+        j = jobs[rows]
+        k = flags & 0xFFFF
+        if k not in wide:
+            wide[k] = planes[k].to(I32)
+        prm = np.stack([j[:, 0], j[:, 1], j[:, 2] & 0xFF, j[:, 2] >> 8 & 0xFF,
+                        j[:, 5] & 0xFFFF, j[:, 5] >> 16 & 0xFFFF,
+                        j[:, 6] & 0xFFFF, j[:, 6] >> 16 & 0xFFFF], 1)
+        v = _put_bucket(wide[k], torch.from_numpy(prm).to(dev), w, h,
+                        bool(flags >> 16 & 1), bd, flags >> 19 & 3,
+                        flags >> 21 & 3, flags >> 17 & 3, wrap,
+                        bool(flags >> 23 & 1))
+        at = j[:, 7:8].astype(np.int64) + np.arange(w * h)
+        out[torch.from_numpy(at.reshape(-1)).to(dev)] = v.reshape(-1)
+    return out
+
+
+def put_table(planes, table, bd):
+    """Every put of `table` into one new int32 buffer [table.n_out].
+
+    planes: the call's reference planes, int16 [H, W] tensors on one device
+    (None where the table reads none), indexed by the rows' plane field.
+    The table goes up as one int32 array (`PutTable.packed`).  On CUDA
+    tensors one launch of `mc_put_kernel` (csrc/mc.cu) on their card's
+    current stream computes every row, counted in `put_table.launches`,
+    per card, and `stats["put_kernel_launches"]`; on CPU tensors
+    `put_table_ref` does.  Another device raises; nothing falls back."""
+    dev = one_device("put_table", planes)
+    classes, blocks, smem = table.layout()
+    # one upload, counted on the CPU too, so that up_bytes is what a card
+    # takes whichever device runs the puts
+    tab = _up(table.packed(planes, classes), dev)
+    if dev.type == "cpu":
+        return put_table_ref(planes, table, bd)
+    if dev.type != "cuda":
+        raise ValueError(f"put_table: unsupported device {dev}")
+    if any(p is not None and (p.dtype != torch.int16 or p.dim() != 2 or
+                              not p.is_contiguous()) for p in planes):
+        raise ValueError("put_table: contiguous int16 [H, W] planes expected")
+    if not 8 <= bd <= 12 or smem > SMEM_LIMIT:
+        raise ValueError(f"put_table: bit depth {bd}, {smem} bytes of "
+                         "shared memory")
+    if len(table.jobs) and int((table.jobs[:, 3] & 0xFFFF).max()) >= \
+            len(planes):
+        raise ValueError("put_table: a row names a plane it was not given")
+    out = torch.empty(table.n_out, dtype=I32, device=dev)
+    if blocks:
+        _put_launch(tab, len(planes), classes, blocks, smem, out, bd)
+    return out
+
+
+def _put_launch(tab, n_planes, classes, blocks, smem, out, bd):
+    """One launch of the put kernel on the packed table `tab` (a CUDA
+    tensor) into `out`."""
+    dev = out.device
+    lf, cf = _filter_banks(str(dev))
+    at = tab.data_ptr() + 4 * PLANE_COLS * n_planes
+    with torch.cuda.device(dev):
+        err = _build.lib().ffvvc_mc_put(
+            tab.data_ptr(), at, len(classes), at + 4 * classes.size,
+            lf.data_ptr(), cf.data_ptr(), out.data_ptr(), blocks, smem, bd,
+            stream_of(out))
+    _build.check(err, "ffvvc_mc_put")
+    count_launch(put_table, dev)
+    stats["put_kernel_launches"] += 1
+    stats["launches"] += 1
+
+
+# kernel launches, in all and per card
+put_table.launches = 0
+put_table.launches_by_device = {}
+
+
+# mesh-sharded puts: the rows of a call's put table partition over the
+# "tile" mesh axis (the reference planes a part reads copied to its device,
+# which computes its rows), the outputs come back into the call's buffer.
+# The form of the reference's per-CTU inter tasks running on every worker
+# (vvc_thread.c:432-450).
+sharded_puts = 0      # tables split (tests assert engagement)
+# bytes of reference plane copied to each other device for a split table
+# ({str(device): bytes}; none when a tile's device is the planes' own)
 sharded_ref_bytes = {}
 
 
-def _put_sharded(ref, prm, mesh, *statics):
-    """`_put_bucket` with its blocks split over the mesh's "tile" devices
-    (gop row 0) when there are at least as many blocks as tiles; the
-    outputs come back to ref's device in block order."""
+def _put_sharded(planes, table, mesh, bd):
+    """`put_table` with the table's rows split over the mesh's "tile"
+    devices (gop row 0) when it has at least as many rows as tiles; the
+    outputs come back to the planes' device in row order."""
     global sharded_puts
     t = mesh.shape["tile"] if mesh is not None else 1
-    if mesh is None or prm.shape[0] < t:
-        return _put_bucket(ref, prm, *statics)
-    outs = []
-    for i, part in enumerate(torch.tensor_split(prm, t)):
-        there = ref.to(mesh.device(0, i))
-        if there is not ref:
-            key = str(there.device)
-            sharded_ref_bytes[key] = sharded_ref_bytes.get(key, 0) + \
-                ref.nbytes
-        outs.append(_put_bucket(there, part.to(there.device),
-                                *statics).to(ref.device))
+    n = len(table.jobs)
+    if mesh is None or n < t:
+        return put_table(planes, table, bd)
+    dev = one_device("put_table", planes)
+    out = torch.empty(table.n_out, dtype=I32, device=dev)
+    for i, rows in enumerate(np.array_split(np.arange(n), t)):
+        lo, hi = int(rows[0]), int(rows[-1]) + 1
+        part = table.part(lo, hi)
+        there = mesh.device(0, i)
+        sent = [None] * len(planes)
+        for k in np.unique(part.jobs[:, 3] & 0xFFFF).tolist():
+            sent[k] = planes[k].to(there)
+            if sent[k] is not planes[k]:
+                key = str(sent[k].device)
+                sharded_ref_bytes[key] = sharded_ref_bytes.get(key, 0) + \
+                    planes[k].nbytes
+        at = int(table.jobs[lo, 7])
+        out[at:at + part.n_out] = put_table(sent, part, bd).to(dev)
     sharded_puts += 1
-    return torch.cat(outs)
+    return out
 
 
 def mc_put_batch(ref_plane, xs, ys, frac_x, frac_y, w, h, is_luma, bd,
@@ -374,12 +612,13 @@ def mc_put_batch(ref_plane, xs, ys, frac_x, frac_y, w, h, is_luma, bd,
                  mesh=None):
     """Host-facing batched put for one (w, h, frac-class) bucket.
 
-    ref_plane: np.int32 [H, W]; xs/ys/frac_x/frac_y: np arrays [B].
-    All blocks in a call share bool(frac_x) / bool(frac_y) (the caller
-    buckets by frac-class); per-block fractional phases may differ.
-    box: optional [B, 4] inclusive clamp boxes (DMVR prefetch windows).
-    mesh: optional mesh (`parallel/mesh.py`) — the batch partitions across
-    its "tile" devices when it has at least as many blocks.  Returns
+    ref_plane: [H, W] samples (at most 12 bits); xs/ys/frac_x/frac_y: np
+    arrays [B].  All blocks in a call share bool(frac_x) / bool(frac_y)
+    (the caller buckets by frac-class); per-block fractional phases may
+    differ.  box: optional [B, 4] inclusive clamp boxes (DMVR prefetch
+    windows).  mesh: optional mesh (`parallel/mesh.py`) — the batch
+    partitions across its "tile" devices when it has at least as many
+    blocks.  Runs through `put_table` as a one-bucket table.  Returns
     np.int32 [B, h, w] (14-bit domain)."""
     dev = torch.device(device)
     frac_x, frac_y = np.asarray(frac_x), np.asarray(frac_y)
@@ -387,10 +626,12 @@ def mc_put_batch(ref_plane, xs, ys, frac_x, frac_y, w, h, is_luma, bd,
     cols = [np.asarray(xs), np.asarray(ys), frac_x, frac_y]
     if box is not None:
         cols += list(np.asarray(box).reshape(len(cols[0]), 4).T)
-    prm = _up(np.stack(cols, axis=1), dev, np.int32)
-    ref = _up(ref_plane, dev, np.int32)
-    return _down(_put_sharded(ref, prm, mesh, w, h, is_luma, bd, hf_idx,
-                              vf_idx, fclass, wrap, box is not None))
+    ref = _up(as_wire(ref_plane), dev)
+    table, _ = put_table_of([(0, ref.shape, np.stack(cols, axis=1), w, h,
+                              is_luma, hf_idx, vf_idx, fclass, wrap,
+                              box is not None)])
+    out = _put_sharded([ref], table, mesh, int(bd))
+    return _down(out).reshape(-1, h, w)
 
 
 def mc_avg_batch(s0, s1, bd, device="cuda"):
@@ -412,19 +653,30 @@ PF_L0, PF_L1, PF_BI = 1, 2, 3
 class _Planes:
     """Reference planes on the device for the length of one
     frame_device_mc call: each goes up once, as 16-bit samples, whatever
-    the number of buckets that read it.  Not kept across calls: under row
-    progress a reference frame is still being filtered and only the rows
-    the caller waited for are final."""
+    the number of puts that read it; `wire` holds them in the order of
+    first use, which is the put table's plane index.  Not kept across
+    calls: under row progress a reference frame is still being filtered
+    and only the rows the caller waited for are final."""
 
     def __init__(self, dev):
         self.dev = dev
-        self.by_id = {}
+        self.wire = []
+        self.at = {}          # id(host plane) -> index into wire
+        self.wide = {}        # index -> int32 copy (the DMVR prefetch)
+
+    def index(self, plane):
+        k = self.at.get(id(plane))
+        if k is None:
+            k = self.at[id(plane)] = len(self.wire)
+            self.wire.append(_up(as_wire(plane), self.dev))
+        return k
 
     def __call__(self, plane):
-        t = self.by_id.get(id(plane))
-        if t is None:
-            t = self.by_id[id(plane)] = _up(as_wire(plane), self.dev).to(I32)
-        return t
+        """The plane as int32 samples, for the DMVR prefetch's buckets."""
+        k = self.index(plane)
+        if k not in self.wide:
+            self.wide[k] = self.wire[k].to(I32)
+        return self.wide[k]
 
 
 class _Flat:
@@ -444,6 +696,19 @@ class _Flat:
                 n += vals[key].shape[0]
             self.flat[size] = vals[keys[0]] if len(keys) == 1 else \
                 torch.cat([vals[k] for k in keys])
+
+    @classmethod
+    def of_table(cls, buf, table, first):
+        """The outputs of a put table's buffer: each size's rows are a view
+        of `buf`; first[key] is ((w, h), index of the first block among its
+        size's) of bucket key (`put_table_of`)."""
+        self = cls({}, None)
+        self.base = {key: i for key, (_, i) in first.items()}
+        self.size = {key: size for key, (size, _) in first.items()}
+        for w, h, j0, n in table.runs:
+            at = int(table.jobs[j0, 7])
+            self.flat[(w, h)] = buf[at:at + n * w * h].view(n, h, w)
+        return self
 
     def index(self, slots, dev):
         """Slots of one size -> (that size's tensor, their positions)."""
@@ -847,17 +1112,20 @@ def _frame_mc(native_jobs, sps, bd, dev, mesh):
                                 wparams, lm))
 
     with trace.span("mc.put"):
-        vals = {}
+        # one table of every put, one launch (per "tile" device on a mesh)
+        buckets = []
         for key, b in put_buckets.items():
             _pid, w, h, is_luma, hf_idx, has_fx, has_fy, wrap, boxed = key
             fclass = (1 if has_fx else 0) | (2 if has_fy else 0)
-            vals[key] = _put_sharded(
-                planes(b["plane"]), _up(b["prm"], dev, np.int32), mesh, w, h,
-                is_luma, bd, hf_idx, hf_idx, fclass, wrap, boxed)
+            k = planes.index(b["plane"])
+            buckets.append((k, planes.wire[k].shape, b["prm"], w, h, is_luma,
+                            hf_idx, hf_idx, fclass, wrap, boxed))
             stats["put_buckets"] += 1
             stats["put_blocks"] += len(b["prm"])
             stats["put_class"][fclass] += 1
-        flat = _Flat(vals, lambda key: (key[1], key[2]))
+        table, first = put_table_of(buckets)
+        flat = _Flat.of_table(_put_sharded(planes.wire, table, mesh, int(bd)),
+                              table, dict(zip(put_buckets, first)))
 
         if prof_jobs:
             # batched PROF refinement overrides the affine put slots

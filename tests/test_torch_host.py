@@ -124,6 +124,7 @@ def test_every_host_file_is_accounted_for():
            "ops/fused_device.py", "ops/kernel_inputs.py",
            "ops/lmcs_device.py", "ops/mc_device.py", "ops/inter_device.py",
            "ops/itx.py", "ops/intra_device.py", "csrc/filters.cu",
+           "csrc/mc.cu",
            "native/_build.py", "tools/__init__.py", "tools/alf_ab.py",
            "tools/decode.py", "tools/sass.py", "parallel/__init__.py",
            "parallel/mesh.py", "parallel/filters.py", "trace.py"}

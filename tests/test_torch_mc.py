@@ -32,6 +32,7 @@ from ffvvc_tpu_torch import DecoderConfig, VVCDecoder
 from ffvvc_tpu_torch import decoder as pdecoder
 from ffvvc_tpu_torch.ops import fused_device as fd
 from ffvvc_tpu_torch.ops import inter_device, mc_device
+from ffvvc_tpu_torch.ops.kernel_inputs import put_inputs
 
 
 def T(a):
@@ -267,6 +268,124 @@ def test_host_half_equals_the_original():
         same(a, b)
 
 
+# ---- the put table -----------------------------------------------------------
+
+def _bucket_math(planes, bucket, bd):
+    """One bucket of `put_inputs` through `_mc_put_math` as the per-bucket
+    path ran it, its boxes as given."""
+    k, _, rows, w, h, luma, hf, vf, fclass, wrap, boxed = bucket
+    lf, cf = mc_device._filter_banks("cpu")
+    bank = lf if luma else cf
+    prm = T(rows)
+    return mc_device._mc_put_math(
+        T(planes[k]), prm[:, 0], prm[:, 1], bank[hf][prm[:, 2].long()],
+        bank[vf][prm[:, 3].long()], prm[:, 4:8] if boxed else None, w, h,
+        luma, bd, fclass, wrap, boxed)
+
+
+@pytest.mark.parametrize("bd,seed", [(8, 1), (10, 2), (10, 3), (12, 4)])
+def test_put_table_equals_the_buckets(bd, seed):
+    """put_table on the CPU (the kernel's twin reading the packed rows)
+    equals `_mc_put_math` bucket by bucket: the four classes, luma and
+    chroma, 2x2 to 128x128, PROF and BDOF rings, wraparound, boxes reaching
+    past the plane, blocks overhanging all four borders.  Read back through
+    the one-buffer `_Flat`, in shuffled bucket order."""
+    rng = np.random.default_rng(seed)
+    planes, buckets = put_inputs(rng, 72, 136, bd)
+    order = rng.permutation(len(buckets))
+    buckets = [buckets[i] for i in order]
+    table, first = mc_device.put_table_of(buckets)
+    keys = list(range(len(buckets)))
+    buf = mc_device.put_table([torch.from_numpy(p) for p in planes], table,
+                              bd)
+    flat = mc_device._Flat.of_table(buf, table, dict(zip(keys, first)))
+    for i, b in zip(keys, buckets):
+        got = flat.take([(i, j) for j in range(len(b[2]))], "cpu")
+        assert torch.equal(got, _bucket_math(planes, b, bd)), b[3:]
+
+
+def _kernel_writes(table):
+    """The output elements each CUDA block of `mc_put_kernel` writes, by
+    the kernel's own index arithmetic (class search, units, tiles), with
+    its shared-memory layout checked against the launch's size."""
+    classes, blocks, smem = table.layout()
+    written = np.zeros(table.n_out, np.int64)
+    for b in range(blocks):
+        lo, hi = 0, len(classes) - 1
+        while lo < hi:
+            m = (lo + hi + 1) >> 1
+            if classes[m, 9] <= b:
+                lo = m
+            else:
+                hi = m - 1
+        w, h, tw, th, tx, tiles, upb, j0, n, b0 = classes[lo].tolist()
+        win = ((th + 7) * (tw + 7) + 1) & ~1
+        assert upb * tw * th <= mc_device.THREADS
+        assert upb * (2 * win + 4 * (th + 7) * tw) <= smem
+        for slot in range(upb):
+            u = (b - b0) * upb + slot
+            if u >= n * tiles:
+                continue
+            t = u % tiles
+            ox, oy = t % tx * tw, t // tx * th
+            cw, ch = min(tw, w - ox), min(th, h - oy)
+            at = table.jobs[j0 + u // tiles, 7] + oy * w + ox
+            written[at + np.arange(ch)[:, None] * w + np.arange(cw)] += 1
+    return written, smem
+
+
+def test_put_table_layout_covers_every_output_once():
+    """The CUDA blocks of one launch write every output of the table
+    exactly once, within 48 KB of shared memory, for the whole table and
+    for each part a mesh of three tiles would take."""
+    planes, buckets = put_inputs(np.random.default_rng(5), 72, 136, 10,
+                                 blocks=3)
+    table, _ = mc_device.put_table_of(buckets)
+    n = len(table.jobs)
+    for lo, hi in ((0, n), (0, n // 3), (n // 3, 2 * n // 3),
+                   (2 * n // 3, n)):
+        part = table.part(lo, hi) if (lo, hi) != (0, n) else table
+        written, smem = _kernel_writes(part)
+        assert (written == 1).all() and smem <= mc_device.SMEM_LIMIT
+        end = table.jobs[hi, 7] if hi < n else table.n_out
+        assert part.n_out == end - table.jobs[lo, 7]
+
+
+def test_one_buffer_flat_equals_the_concatenated_layout():
+    """The one-buffer `_Flat` (views of the put table's buffer) gives what
+    the per-bucket outputs concatenated by size give, through `take` and
+    `index`, for slots of every size in random order."""
+    rng = np.random.default_rng(9)
+    planes, buckets = put_inputs(rng, 64, 96, 10, blocks=3)
+    table, first = mc_device.put_table_of(buckets)
+    keys = [(i, b[3], b[4]) for i, b in enumerate(buckets)]
+    one = mc_device._Flat.of_table(
+        mc_device.put_table([torch.from_numpy(p) for p in planes], table, 10),
+        table, dict(zip(keys, first)))
+    cat = mc_device._Flat({key: _bucket_math(planes, b, 10)
+                           for key, b in zip(keys, buckets)},
+                          lambda key: (key[1], key[2]))
+    sizes = {}
+    for key, b in zip(keys, buckets):
+        sizes.setdefault(key[1:], []).extend(
+            (key, j) for j in range(len(b[2])))
+    for slots in sizes.values():
+        slots = [slots[i] for i in rng.permutation(len(slots))]
+        assert torch.equal(one.take(slots, "cpu"), cat.take(slots, "cpu"))
+        (a, ia), (b, ib) = one.index(slots, "cpu"), cat.index(slots, "cpu")
+        assert torch.equal(a[ia], b[ib])
+
+
+def test_put_table_refuses_other_devices():
+    """Neither CPU nor CUDA: put_table raises, nothing falls back."""
+    planes, buckets = put_inputs(np.random.default_rng(2), 32, 64, 10,
+                                 blocks=2)
+    table, _ = mc_device.put_table_of(buckets[:3])
+    with pytest.raises(ValueError, match="unsupported device"):
+        mc_device.put_table([torch.zeros(32, 64, dtype=torch.int16,
+                                         device="meta")], table, 10)
+
+
 # ---- decode level -----------------------------------------------------------
 
 def host_yuv(s):
@@ -477,6 +596,35 @@ def test_planes_go_up_once_per_call():
     planes = 2 * (128 * 128 + 2 * 64 * 64) * 2         # 16-bit samples
     params = stats["put_blocks"] * 8 * 4 + stats["descriptors"] * 3 * 2 * 8
     assert stats["up_bytes"] <= planes + params, stats
+
+
+@pytest.mark.parametrize("name", ["mixed", "dmvr_bdof"])
+def test_put_buckets_count_the_table_groups(name, monkeypatch):
+    """stats["put_buckets"] counts the distinct put groups (plane, size,
+    class, filter, wrap, box) as the per-bucket path did: each call's one
+    table holds exactly its buckets' groups and blocks.  On the CPU no
+    kernel launches."""
+    seen = []
+    real = mc_device.put_table_of
+
+    def spy(buckets):
+        table, first = real(buckets)
+        size = np.repeat(np.array([r[:2] for r in table.runs]),
+                         [r[3] for r in table.runs], axis=0)
+        groups = np.unique(np.concatenate([size, table.jobs[:, 3:5]], 1),
+                           axis=0)
+        seen.append((len(buckets), len(groups), len(table.jobs),
+                     sum(len(b[2]) for b in buckets)))
+        return table, first
+    monkeypatch.setattr(mc_device, "put_table_of", spy)
+    s = forge_inter_stream(deblock=True, **INTER_STREAMS[name]) \
+        if name in INTER_STREAMS else forge_hier_stream(**HIER_STREAMS[name])
+    stats = check_device_mc(s, pipeline_frames=False)
+    assert seen and all(a == b and c == d for a, b, c, d in seen), seen
+    assert stats["put_buckets"] == sum(a for a, _, _, _ in seen)
+    assert stats["put_blocks"] == sum(c for _, _, c, _ in seen)
+    assert stats["put_kernel_launches"] == 0
+    assert len(seen) <= stats["calls"]
 
 
 def test_device_mc_does_not_fall_back(monkeypatch):

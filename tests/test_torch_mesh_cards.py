@@ -251,25 +251,30 @@ def test_launches_counted_per_device():
     (("meta", "meta", "cpu"), {"meta": 2}),
 ])
 def test_sharded_puts_count_the_plane_sent(monkeypatch, devices, want):
-    """Each tile on another device receives the reference plane once a
-    bucket (its bytes counted under that device); a tile on the plane's
-    own device receives nothing.  Each part of the bucket goes with its
-    copy of the plane, and the outputs come back in block order."""
+    """Each tile on another device receives the reference planes its part
+    of the put table reads, once a call (their bytes counted under that
+    device); a tile on the planes' own device receives nothing.  Each part
+    of the table goes with its copies of the planes, and the outputs come
+    back in row order."""
+    import numpy as np
     seen = []
 
-    def put(ref, prm, *statics):
-        seen.append((ref.device.type, prm.device.type, prm.shape[0]))
-        return torch.arange(prm.shape[0])          # block order, on the CPU
-    monkeypatch.setattr(mc_device, "_put_bucket", put)
+    def put(planes, table, bd):
+        seen.append(([p.device.type for p in planes if p is not None],
+                     len(table.jobs)))
+        return torch.arange(table.n_out)          # row order, on the CPU
+    monkeypatch.setattr(mc_device, "put_table", put)
     monkeypatch.setattr(mc_device, "sharded_ref_bytes", {})
-    ref = torch.zeros((24, 40), dtype=torch.int32)
+    ref = torch.zeros((24, 40), dtype=torch.int16)
+    rows = np.zeros((7, 4), np.int32)
+    table, _ = mc_device.put_table_of([(0, ref.shape, rows, 2, 2, True, 0, 0,
+                                        0, 0, False)])
     mesh = make_mesh_exact((1, len(devices)), list(devices))
-    out = mc_device._put_sharded(ref, torch.zeros((7, 4), dtype=torch.int32),
-                                 mesh)
+    out = mc_device._put_sharded([ref], table, mesh, 10)
     t = len(devices)
     parts = [len(p) for p in torch.tensor_split(torch.arange(7), t)]
-    assert seen == [(d, d, n) for d, n in zip(devices, parts)]
-    assert out.tolist() == [k for n in parts for k in range(n)]
+    assert seen == [([d], n) for d, n in zip(devices, parts)]
+    assert out.tolist() == [k for n in parts for k in range(4 * n)]
     assert mc_device.sharded_ref_bytes == {
         d: n * ref.nbytes for d, n in want.items()}
 
