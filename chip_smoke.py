@@ -66,14 +66,14 @@ Phases, each of which raises on a fault (the script then exits non-zero):
    past and a future reference: DMVR and BDOF armed) with deblock, SAO, ALF
    and CC-ALF, decoded by the host, by device_mc alone (once as it comes,
    once with a pixel thread that starts late, so that the references are
-   in flight and the row-band form runs: more frame_device_mc calls than
-   inter frames) and by device_mc with device_pipeline and row progress off
-   (the whole-frame form, the hand kernels on the same frames); all
-   md5-equal; all four put
+   still in flight when the next frame's MC runs) and by device_mc with
+   device_pipeline (the hand kernels on the same frames); all md5-equal,
+   each with one frame_device_mc call per inter frame; all four put
    classes, DMVR and BDOF counted; on the card every call's puts in one
-   put-kernel launch and none eager.  The largest row band's put table and
-   the largest whole frame's replayed: the kernel's device time, bytes and
-   bound beside its whole wrapper and its plain twin.  Per inter frame: descriptors, buckets,
+   put-kernel launch and none eager.  The largest whole frame's put table
+   and a small table (its first ninth of rows) replayed: the kernel's
+   device time, bytes and bound beside its whole wrapper and its plain
+   twin.  Per inter frame: descriptors, buckets,
    batched calls, MB up and down and the ms of the MC stage beside the host
    C MC's.  Then the other inter tools at 416x240 through device_mc (affine
    with PROF, SbTMVP, GPM, weighted P and bi, BCW, wraparound, mono LMCS,
@@ -159,7 +159,7 @@ from ffvvc_tpu_torch.ops import intra_device as idv  # noqa: E402
 from ffvvc_tpu_torch.ops.kernel_inputs import (  # noqa: E402
     alf_chroma_inputs, alf_luma_inputs, cc_inputs, edge_words, put_inputs,
     sao_inputs, sao_restore_inputs)
-from ffvvc_tpu_torch.ops.sao_device import Slab  # noqa: E402
+from ffvvc_tpu_torch.ops.device import Slab, stream_of  # noqa: E402
 from ffvvc_tpu_torch.parallel import filters as PF  # noqa: E402
 from ffvvc_tpu_torch.pipeline import _decode_segment  # noqa: E402
 from ffvvc_tpu_torch import trace  # noqa: E402
@@ -948,8 +948,10 @@ def time_put_table(label, planes, table, bd, smi):
     classes, blocks, smem = table.layout()
     tab = torch.from_numpy(table.packed(planes, classes)).to(dev)
     out = torch.empty(table.n_out, dtype=torch.int32, device=dev)
-    us = graph_ms([lambda: mc_device._put_launch(
-        tab, len(planes), classes, blocks, smem, out, bd)]) * 1e3
+    args = mc_device.put_args(tab, len(planes), classes, blocks, smem, out,
+                              bd)
+    us = graph_ms([lambda: _build.check(_build.lib().ffvvc_mc_put(
+        *args, stream_of(dev)), "ffvvc_mc_put")]) * 1e3
     want = mc_device.put_table_ref(planes, table, bd)
     if not torch.equal(out, want):
         raise AssertionError(f"put kernel on the {label} table differs "
@@ -1053,11 +1055,14 @@ class McLog:
 
         def spy(jobs, sps, bd, device="cuda", mesh=None):
             before = dict(mc_device.stats, put_class=None)
+            kernel = mc_device.put_table.launches
             t0 = time.perf_counter()
             self.orig(jobs, sps, bd, device=device, mesh=mesh)
             dt = time.perf_counter() - t0
             delta = {k: v - before[k] for k, v in mc_device.stats.items()
                      if k != "put_class"}
+            delta["put_kernel_launches"] = \
+                mc_device.put_table.launches - kernel
             self.calls.append((id(jobs[0][0].fb), dt, delta))
         mc_device.frame_device_mc = spy
         return self
@@ -1078,9 +1083,8 @@ class McLog:
 class LatePixels(concurrent.futures.ThreadPoolExecutor):
     """A pixel thread for the decoder that starts every job `delay` seconds
     late: a host whose pixel stages are still running when the next frame
-    has been parsed.  That is when the decoder's MC waits per CTU row on its
-    references and device_mc takes the row-band form; on a quick host the
-    references are final by then and it takes the whole-frame form."""
+    has been parsed, as in the benchmark's cells.  Device MC then waits for
+    each reference as a whole, and still makes one call per frame."""
 
     def __init__(self, delay):
         super().__init__(max_workers=1, thread_name_prefix="ffvvc-pixels")
@@ -1098,10 +1102,11 @@ def mc_decode(tag, stream, ref_md5, host_mc, smi, n_inter, late_pixels=0.0,
     """One decode through device_mc on DEVICE, checked against the host
     decode's md5; prints what the device MC did per inter frame, beside
     `host_mc`, the ms the host C MC takes for one, and its phases' ms from
-    the decode's spans.  On the card every call's puts must go through one
-    launch of the put kernel and none through the eager per-bucket path.
-    Appends the put tables to `keep` when given.  Returns the
-    mc_device.stats of the decode."""
+    the decode's spans.  Every inter frame must be one frame_device_mc
+    call; on the card every call's puts must go through one launch of the
+    put kernel and none through the eager per-bucket path.  Appends the
+    put tables to `keep` when given.  Returns the mc_device.stats of the
+    decode."""
     from ffvvc_tpu_torch import DecoderConfig, VVCDecoder
     mc_device.reset_stats()
     fd.reset_stats()
@@ -1110,10 +1115,12 @@ def mc_decode(tag, stream, ref_md5, host_mc, smi, n_inter, late_pixels=0.0,
     if late_pixels:
         dec._pix_exec = LatePixels(late_pixels)
     trace.clear()
+    kernel = mc_device.put_table.launches
     with McLog() as log, PutLog() as puts:
         t0 = time.monotonic()
         frames = dec.decode(stream)
         dt = time.monotonic() - t0
+    kernel = mc_device.put_table.launches - kernel
     if keep is not None:
         keep += puts.tables
     phases = {}             # decode sequence number -> {phase: seconds}
@@ -1133,19 +1140,20 @@ def mc_decode(tag, stream, ref_md5, host_mc, smi, n_inter, late_pixels=0.0,
     if md5 != ref_md5:
         raise AssertionError(f"{tag} device_mc decode md5 {md5} != host "
                              f"{ref_md5}")
-    print(f"{tag} put kernel: {stats['put_kernel_launches']} launches for "
+    print(f"{tag} put kernel: {kernel} launches for "
           f"{stats['calls']} frame_device_mc calls ({len(puts.tables)} put "
           f"tables), {puts.eager} eager per-bucket puts")
     # (a call whose blocks are all intra or CIIP has no puts)
     if DEVICE == "cuda" and (
-            stats["put_kernel_launches"] != len(puts.tables) or
+            kernel != len(puts.tables) or
             not 0 < len(puts.tables) <= stats["calls"] or puts.eager):
         raise AssertionError(f"{tag} puts did not all go through one "
                              "kernel launch a call")
     per_frame = log.frames()
-    if len(per_frame) != n_inter:
+    if len(per_frame) != n_inter or stats["calls"] != n_inter:
         raise AssertionError(f"{tag} device MC ran on {len(per_frame)} of "
-                             f"{n_inter} inter frames")
+                             f"{n_inter} inter frames in {stats['calls']} "
+                             "calls")
     for i, ((calls, secs, d), seq) in enumerate(zip(per_frame,
                                                     sorted(phases))):
         shares = {k: round(v * 1e3, 1) for k, v in phases[seq].items()}
@@ -1189,51 +1197,47 @@ def inter_b(smi):
         stream))
     if md5_pipelined != ref_md5:
         raise AssertionError(f"{tag} the host decode differs from itself")
-    # device_mc alone, as configured by default; which form it takes depends
-    # on whether the references' pixel stages have ended by then
+    # device_mc alone, as configured by default, then with the references
+    # still in flight when the next frame's MC runs: one call a frame both
     mc_decode(tag + "[default]", stream, ref_md5, host_mc, smi, n_inter)
-    # the row-band form: row progress on and the references still in flight
-    bands, wholes = [], []
-    stats = mc_decode(tag + "[rows]", stream, ref_md5, host_mc, smi, n_inter,
-                      late_pixels=1.0, keep=bands)
-    if stats["calls"] <= n_inter:
-        raise AssertionError(f"{tag} the row-band form made "
-                             f"{stats['calls']} calls for {n_inter} frames")
-    # device_mc with the fused chain, one call per frame, the hand kernels
-    # on the same frames: counts from zero just before, read just after
+    mc_decode(tag + "[late]", stream, ref_md5, host_mc, smi, n_inter,
+              late_pixels=1.0)
+    # device_mc with the fused chain, the hand kernels on the same frames:
+    # counts from zero just before, read just after
+    wholes = []
     reset_launches()
-    stats = mc_decode(tag + "[whole+fused]", stream, ref_md5, host_mc, smi,
-                      n_inter, device_pipeline=True, row_progress=False,
-                      keep=wholes)
+    stats = mc_decode(tag + "[mc+fused]", stream, ref_md5, host_mc, smi,
+                      n_inter, device_pipeline=True, keep=wholes)
     launches = {k: fn.launches - fn.edge_launches
                 for k, (fn, which, _, _) in KERNELS.items()
                 if which != "edges" and "/" not in k}
-    print(f"{tag}[whole+fused] hand-kernel launches: {json.dumps(launches)}; "
+    print(f"{tag}[mc+fused] hand-kernel launches: {json.dumps(launches)}; "
           f"fused chain ran on {fd.stats['frames']} of {n} frames; put "
           f"buckets by class (copy, h, v, hv): {stats['put_class']}")
-    if stats["calls"] != n_inter or fd.stats["frames"] != n or \
+    if fd.stats["frames"] != n or \
             (DEVICE == "cuda" and not all(launches.values())):
-        raise AssertionError(f"{tag} whole-frame form: {stats['calls']} "
-                             f"calls, fused on {fd.stats['frames']} frames, "
-                             f"launches {launches}")
+        raise AssertionError(f"{tag}[mc+fused]: fused on "
+                             f"{fd.stats['frames']} frames, launches "
+                             f"{launches}")
     if not (all(stats["put_class"]) and stats["dmvr_subblocks"]
             and stats["bdof_blocks"]):
         raise AssertionError(f"{tag} a put class, DMVR or BDOF never ran: "
                              f"{stats}")
     if DEVICE == "cuda":
-        # the largest row band's table and the largest whole frame's,
-        # replayed: the kernel's device time beside its bound and the twin
-        for label, kept in (("row band", bands), ("whole frame", wholes)):
-            planes, table, bd = max(kept, key=lambda t: len(t[1].jobs))
-            time_put_table(f"{label} (largest of {len(kept)})", planes,
-                           table, bd, smi)
-    del bands, wholes
+        # the largest whole frame's table and a small one (its first ninth
+        # of rows), replayed: the kernel's device time beside its bound and
+        # the twin
+        planes, table, bd = max(wholes, key=lambda t: len(t[1].jobs))
+        time_put_table(f"whole frame (largest of {len(wholes)})", planes,
+                       table, bd, smi)
+        time_put_table("small table (the first ninth of its rows)", planes,
+                       table.part(0, len(table.jobs) // 9), bd, smi)
+    del wholes
     # the three toggles together: the IDR through device intra, the P and B
     # frames through device MC, the fused chain on all three
     idv.reset_stats()
     mc_decode(tag + "[intra+mc+fused]", stream, ref_md5, host_mc, smi,
-              n_inter, device_pipeline=True, device_intra=True,
-              row_progress=False)
+              n_inter, device_pipeline=True, device_intra=True)
     print(f"{tag}[intra+mc+fused] device intra on {idv.stats['frames']} "
           f"frame ({idv.stats['units']} units, {idv.stats['queue_s']:.3f} s "
           f"of queueing), fused chain on {fd.stats['frames']} of {n} frames")
@@ -1241,8 +1245,8 @@ def inter_b(smi):
         raise AssertionError(f"{tag}[intra+mc+fused] device intra on "
                              f"{idv.stats['frames']} frames, fused chain on "
                              f"{fd.stats['frames']}")
-    # where the MC stage's time goes: device_mc alone, serial (no reference
-    # in flight, so one call per frame), under the profiler
+    # where the MC stage's time goes: device_mc alone, serial, under the
+    # profiler
     mc_device.reset_stats()
     dec = VVCDecoder(DecoderConfig(device=DEVICE, device_mc=True,
                                    pipeline_frames=False, profile=True))
@@ -1252,7 +1256,7 @@ def inter_b(smi):
             dec.decode(stream)
         busy = sorted(((e.self_device_time_total, e.count, e.key)
                        for e in prof.key_averages()), reverse=True)
-        print(f"{tag}[whole] serial decode: device busy "
+        print(f"{tag}[mc] serial decode: device busy "
               f"{sum(b[0] for b in busy) / n_inter / 1e3:.3f} ms per inter "
               f"frame in {sum(b[1] for b in busy) / n_inter:.0f} kernels and "
               "copies; top device work per inter frame: "
@@ -1262,7 +1266,7 @@ def inter_b(smi):
     else:
         dec.decode(stream)
     st = mc_device.stats
-    print(f"{tag}[whole] serial decode: MC stage "
+    print(f"{tag}[mc] serial decode: MC stage "
           f"{dec.stage_times['mc'] / n_inter * 1e3:.1f} ms per inter "
           f"frame (host C MC {host_mc:.1f} ms); ms per inter frame: "
           + json.dumps({k[3:]: round(v / n_inter * 1e3, 1)

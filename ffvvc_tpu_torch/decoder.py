@@ -17,15 +17,14 @@ kept diffable line by line against it, with the device half in PyTorch:
     `sao_device.py`, `alf_device.py`) are this package's, run on
     `config.device` under backend "cuda";
   * the batched inverse transform (`ops/itx.py`), device MC (`device_mc`,
-    `ops/mc_device.py`, whole-frame and per row band, its puts split over
-    the mesh's "tile" axis) and device intra (`device_intra`,
+    `ops/mc_device.py`, one call a frame, its puts split over the mesh's
+    "tile" axis) and device intra (`device_intra`,
     `ops/intra_device.py`) are this package's, run on `config.device`
     under backend "cuda".
 """
 from __future__ import annotations
 
 import dataclasses
-import os
 
 import numpy as np
 
@@ -599,6 +598,7 @@ class VVCDecoder:
         # trimmed to config.pipeline_depth to bound in-flight memory (the
         # reference's deep frame contexts, vvcdec.c:830-841).
         row_wait_refs = None
+        dev_mc = self.config.backend == "cuda" and self.config.device_mc
         if self._mesh_q is not None:
             if is_inter_frame:
                 # reference barrier: MC below reads DPB pixels — land the
@@ -612,11 +612,11 @@ class VVCDecoder:
                         needed={rf.buffer for rf in ref_frames})
         else:
             if is_inter_frame:
-                if os.environ.get("FFVVC_RPL_GATE", "1") == "0":  # A/B toggle
-                    self._join_pixels("wait.refs")
                 all_native = all(not hasattr(ip, "c")
                                  for ip, _ in inter_jobs)
-                if self.config.row_progress and all_native:
+                # device MC is one call a frame, after its references
+                # have landed: only the host filters publish rows early
+                if self.config.row_progress and all_native and not dev_mc:
                     # row-granular gating: MC below waits per CTU row on
                     # just the reference rows it needs (wait_rows);
                     # references that can't publish rows degrade to a
@@ -654,37 +654,21 @@ class VVCDecoder:
                     ip.predict_inter_ctu(rs)
             else:                     # NativeRecon (native/vvc_inter.c)
                 native_mc.extend((ip, rs, rx, ry) for rs, rx, ry in ctus)
-        dev_mc = self.config.backend == "cuda" and self.config.device_mc
         if native_mc and row_wait_refs:
             # row-granular MC: walk CTU rows in order, waiting on just the
             # reference rows this row's MVs reach (+ filter/refinement
             # margin) — the reference's schedule_inter row gating
             # (vvc_thread.c:281-296, max-y per CU from cu_get_max_y).
-            # With device_mc, each row-band runs as its own batched device
-            # MC call (row overlap and device offload compose).
             needy = self._mc_row_needs(tabs, sps, pps)
             from collections import defaultdict
             by_row = defaultdict(list)
             for item in native_mc:
                 by_row[item[3]].append(item)
-            if dev_mc:
-                from .ops.mc_device import frame_device_mc
             for ry in sorted(by_row):
                 need = needy[ry]
                 for rf in row_wait_refs:
                     rf.wait_rows(need)
                 items = by_row[ry]
-                if dev_mc:
-                    jobs_row = defaultdict(list)
-                    for _ip, rs, rx, r2 in items:
-                        jobs_row[id(_ip)].append((rs, rx, r2))
-                    ips = {id(_ip): _ip for _ip, *_ in items}
-                    frame_device_mc([(ips[k], v)
-                                     for k, v in jobs_row.items()],
-                                    sps, sps.bit_depth,
-                                    device=self.config.device,
-                                    mesh=self._mc_mesh())
-                    continue
                 with trace.span("mc.host", row=ry):
                     i = 0
                     while i < len(items):
@@ -1236,8 +1220,7 @@ class VVCDecoder:
             rec.dep_quant = sh.r.sh_dep_quant_used_flag
             job_ctus = []
             if coder.native_tree is not None and \
-                    coder.native_tree.keep_records and \
-                    os.environ.get("FFVVC_BATCH_PARSE", "1") != "0":
+                    coder.native_tree.keep_records:
                 # batched whole-entry-point parse: all per-CTU work
                 # (SAO/ALF params, tree, terminate bits, reinits) in one C
                 # call (native/vvc_parse.c parse_ctus)

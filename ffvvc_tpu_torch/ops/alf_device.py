@@ -19,8 +19,8 @@ bit is set the tap's coordinate is clamped to the CTB on that side
 substitution.  On CUDA tensors each wrapper launches its kernel in
 csrc/filters.cu, on their card and that card's current stream (tensors of
 one call on different devices raise); on CPU tensors it runs its `*_ref`
-version, the same integer math in plain PyTorch.  Given a `Slab`
-(`sao_device.Slab`), each filters a band of the picture's rows as a
+version, the same integer math in plain PyTorch (`device.kernel_device`).  Given
+a `Slab` (`device.Slab`), each filters a band of the picture's rows as a
 whole-picture call filters them (the mesh's slabs, `parallel/filters.py`):
 the class and transpose indices of luma ALF then cover the 4x4 block rows
 of the slab's rows, and CC-ALF takes the luma rows under its chroma rows
@@ -42,9 +42,8 @@ from ..alf import (ALF_VB_POS_ABOVE_CHROMA, ALF_VB_POS_ABOVE_LUMA, AlfFilter,
                    _TRANSPOSE_IDX)
 
 from .. import trace
-from . import _build
-from .sao_device import (MIN_CTB, Slab, _log2, as_wire, count_launch,
-                         ctb_rows, download, one_device, stream_of, upload)
+from .device import (MIN_CTB, Counters, Slab, as_wire, counted, ctb_rows,
+                     download, kernel_device, log2, run, upload)
 
 # luma 7x7-diamond tap geometry: (row_key_a, dx_a, row_key_b, dx_b) per
 # coefficient, row keys indexing the VB-resolved row planes 0..6
@@ -66,11 +65,8 @@ EDGE_LEFT, EDGE_TOP, EDGE_RIGHT, EDGE_BOTTOM = 1, 2, 4, 8
 
 # frames `alf_frame_device` filtered and the bytes it moved each way;
 # reset with reset_stats() (which `fused_device.reset_stats` calls)
-stats = {"frames": 0, "up_bytes": 0, "down_bytes": 0}
-
-
-def reset_stats():
-    stats.update(frames=0, up_bytes=0, down_bytes=0)
+stats = Counters("frames", "up_bytes", "down_bytes")
+reset_stats = stats.reset
 
 
 def vb_reach(ys, cs_v, vb_pos):
@@ -192,30 +188,11 @@ def _check(name, ok, what):
         raise ValueError(f"{name}: {what}")
 
 
-def _check_cuda(name, i16, i32):
-    """Device, type and layout of a kernel's tensors."""
-    for t in (*i16, *i32):
-        _check(name, t.device.type == "cuda",
-               f"unsupported device {t.device}")
-        _check(name, t.is_contiguous(), "tensors must be contiguous")
-    _check(name, all(t.dtype == torch.int16 for t in i16) and
-           all(t.dtype == torch.int32 for t in i32),
-           "int16 planes and int32 parameters expected")
-    _check(name, all(t.data_ptr() % 8 == 0 for t in i16),
-           "planes must be 8-byte aligned")
-
-
-def _count(wrapper, edges, dev):
-    count_launch(wrapper, dev)
-    wrapper.edge_launches += edges is not None
-
-
 def _edge_ptr(name, edges, ch, cw):
     """The kernel's argument for `edges`: its address, or None (a null
     pointer: the variant without per-CTB clamps)."""
     if edges is None:
         return None
-    _check_cuda(name, (), (edges,))
     _check(name, edges.shape == (ch, cw), "edges must be [ch, cw]")
     return edges.data_ptr()
 
@@ -225,16 +202,17 @@ def block_rows(slab):
     return ((slab.row0 + slab.rows - 1) >> 2) - (slab.row0 >> 2) + 1
 
 
+@counted
 def alf_filter_luma(src, ci, ti, ctb_set, cf_tab, cl_tab, cs, pix_max,
                     edges=None, slab=None):
     """Luma ALF: the CUDA kernel on CUDA tensors, `alf_filter_luma_ref`
     (same arguments) on CPU tensors.  Returns a new int16 [rows, W]."""
     name = "alf_filter_luma"
-    dev = one_device(name, (src, ci, ti, ctb_set, cf_tab, cl_tab, edges))
+    dev = kernel_device(name, (src,), (ci, ti, ctb_set, cf_tab, cl_tab),
+                        edges)
     if dev.type == "cpu":
         return alf_filter_luma_ref(src, ci, ti, ctb_set, cf_tab, cl_tab, cs,
                                    pix_max, edges, slab)
-    _check_cuda(name, (src,), (ci, ti, ctb_set, cf_tab, cl_tab))
     R, W = src.shape
     s = slab or Slab.whole(R)
     s.check(name, R)
@@ -242,56 +220,49 @@ def alf_filter_luma(src, ci, ti, ctb_set, cf_tab, cl_tab, cs, pix_max,
     _check(name, s.pic_h % 4 == 0 and W % 4 == 0 and
            ci.shape == ti.shape == (block_rows(s), W // 4) and
            ch * cs >= s.pic_h and cw * cs >= W and cs >= 32 and
-           cf_tab.shape == cl_tab.shape and cf_tab.shape[1:] == (25, 12),
-           "inconsistent shapes")
+           cf_tab.shape == cl_tab.shape and
+           cf_tab.shape[1:] == (25, 12), "inconsistent shapes")
     out = src.new_empty((s.rows, W))
-    with torch.cuda.device(dev):
-        err = _build.lib().ffvvc_alf_luma(
-            s.at_row0(src), out.data_ptr(), s.args(R), W, ci.data_ptr(),
-            ti.data_ptr(), ctb_set.data_ptr(), cw, cf_tab.data_ptr(),
-            cl_tab.data_ptr(), _edge_ptr(name, edges, ch, cw),
-            _log2(cs, "cs"), pix_max, stream_of(src))
-    _build.check(err, "ffvvc_alf_luma")
-    _count(alf_filter_luma, edges, dev)
+    run(alf_filter_luma, "ffvvc_alf_luma", dev, s.at_row0(src),
+        out.data_ptr(), s.args(R), W, ci.data_ptr(), ti.data_ptr(),
+        ctb_set.data_ptr(), cw, cf_tab.data_ptr(), cl_tab.data_ptr(),
+        _edge_ptr(name, edges, ch, cw), log2(cs, "cs"), pix_max,
+        edges=edges is not None)
     return out
 
 
+@counted
 def alf_filter_chroma(srcs, ctb_sets, cf_tabs, cl_tabs, cs_v, cs_h, pix_max,
                       edges=None, slab=None):
     """Chroma ALF of one or two planes in one launch of the CUDA kernel on
     CUDA tensors, `alf_filter_chroma_ref` (same arguments) on CPU tensors.
     Returns new int16 [rows, W] tensors."""
     name = "alf_filter_chroma"
-    dev = one_device(name, (*srcs, *ctb_sets, *cf_tabs, *cl_tabs, edges))
+    dev = kernel_device(name, srcs, (*ctb_sets, *cf_tabs, *cl_tabs), edges)
     if dev.type == "cpu":
         return alf_filter_chroma_ref(srcs, ctb_sets, cf_tabs, cl_tabs, cs_v,
                                      cs_h, pix_max, edges, slab)
     n = len(srcs)
     _check(name, 1 <= n <= 2 and len(ctb_sets) == len(cf_tabs) ==
            len(cl_tabs) == n, "one or two planes, each with its parameters")
-    _check_cuda(name, srcs, (*ctb_sets, *cf_tabs, *cl_tabs))
     R, W = srcs[0].shape
     s = slab or Slab.whole(R)
     s.check(name, R)
     ch, cw = ctb_sets[0].shape
-    _check(name, W % 4 == 0 and ch * cs_v >= s.pic_h and cw * cs_h >= W and
-           min(cs_v, cs_h) >= MIN_CTB and
+    _check(name, W % 4 == 0 and ch * cs_v >= s.pic_h and
+           cw * cs_h >= W and min(cs_v, cs_h) >= MIN_CTB and
            all(x.shape == (R, W) for x in srcs) and
-           all(s.shape == (ch, cw) for s in ctb_sets) and
+           all(t.shape == (ch, cw) for t in ctb_sets) and
            all(t.ndim == 2 and t.shape[1] == 12
                for t in (*cf_tabs, *cl_tabs)), "inconsistent shapes")
     outs = [x.new_empty((s.rows, W)) for x in srcs]
     ptrs = [p for z in range(n) for p in (
         s.at_row0(srcs[z]), outs[z].data_ptr(), ctb_sets[z].data_ptr(),
         cf_tabs[z].data_ptr(), cl_tabs[z].data_ptr())]
-    with torch.cuda.device(dev):
-        err = _build.lib().ffvvc_alf_chroma(
-            n, (ctypes.c_void_p * len(ptrs))(*ptrs),
-            _edge_ptr(name, edges, ch, cw), s.args(R), W, cw,
-            _log2(cs_v, "cs_v"), _log2(cs_h, "cs_h"), pix_max,
-            stream_of(srcs[0]))
-    _build.check(err, "ffvvc_alf_chroma")
-    _count(alf_filter_chroma, edges, dev)
+    run(alf_filter_chroma, "ffvvc_alf_chroma", dev, n,
+        (ctypes.c_void_p * len(ptrs))(*ptrs), _edge_ptr(name, edges, ch, cw),
+        s.args(R), W, cw, log2(cs_v, "cs_v"), log2(cs_h, "cs_h"), pix_max,
+        edges=edges is not None)
     return outs
 
 
@@ -353,20 +324,20 @@ def cc_filter_ref(dsts, luma, ctb_sets, cf_tabs, cs_v, cs_h, hs, vs, half,
     return outs
 
 
+@counted
 def cc_filter(dsts, luma, ctb_sets, cf_tabs, cs_v, cs_h, hs, vs, half,
               pix_max, edges=None, slab=None, luma_slab=None):
     """CC-ALF of one or two chroma planes in one launch of the CUDA kernel
     on CUDA tensors, `cc_filter_ref` (same arguments) on CPU tensors.
     Returns new int16 [rows, Wc] tensors."""
     name = "cc_filter"
-    dev = one_device(name, (*dsts, luma, *ctb_sets, *cf_tabs, edges))
+    dev = kernel_device(name, (*dsts, luma), (*ctb_sets, *cf_tabs), edges)
     if dev.type == "cpu":
         return cc_filter_ref(dsts, luma, ctb_sets, cf_tabs, cs_v, cs_h, hs,
                              vs, half, pix_max, edges, slab, luma_slab)
     n = len(dsts)
     _check(name, 1 <= n <= 2 and len(ctb_sets) == len(cf_tabs) == n,
            "one or two planes, each with its parameters")
-    _check_cuda(name, (*dsts, luma), (*ctb_sets, *cf_tabs))
     Rc, Wc = dsts[0].shape
     R, W = luma.shape
     s = slab or Slab.whole(Rc)
@@ -380,7 +351,7 @@ def cc_filter(dsts, luma, ctb_sets, cf_tabs, cs_v, cs_h, hs, vs, half,
            Wc % 4 == 0 and ch * cs_v >= s.pic_h and cw * cs_h >= Wc and
            min(cs_v, cs_h) >= MIN_CTB and
            all(x.shape == (Rc, Wc) for x in dsts) and
-           all(s.shape == (ch, cw) for s in ctb_sets) and
+           all(t.shape == (ch, cw) for t in ctb_sets) and
            all(t.ndim == 2 and t.shape[1] == 7 for t in cf_tabs),
            "inconsistent shapes")
     _check(name, ls.at_row0(luma) % 16 == 0, "luma must be 16-byte aligned")
@@ -388,22 +359,11 @@ def cc_filter(dsts, luma, ctb_sets, cf_tabs, cs_v, cs_h, hs, vs, half,
     ptrs = [p for z in range(n) for p in (
         s.at_row0(dsts[z]), outs[z].data_ptr(), ctb_sets[z].data_ptr(),
         cf_tabs[z].data_ptr())]
-    with torch.cuda.device(dev):
-        err = _build.lib().ffvvc_cc(
-            n, (ctypes.c_void_p * len(ptrs))(*ptrs), ls.at_row0(luma),
-            _edge_ptr(name, edges, ch, cw), s.args(Rc), ls.args(R), W, Wc,
-            cw, _log2(cs_v, "cs_v"), _log2(cs_h, "cs_h"), hs, vs, half,
-            pix_max, stream_of(luma))
-    _build.check(err, "ffvvc_cc")
-    _count(cc_filter, edges, dev)
+    run(cc_filter, "ffvvc_cc", dev, n, (ctypes.c_void_p * len(ptrs))(*ptrs),
+        ls.at_row0(luma), _edge_ptr(name, edges, ch, cw), s.args(Rc),
+        ls.args(R), W, Wc, cw, log2(cs_v, "cs_v"), log2(cs_h, "cs_h"), hs, vs,
+        half, pix_max, edges=edges is not None)
     return outs
-
-
-# kernel launches of each wrapper, in all and per card, and those of them
-# that took edge words (chip_smoke.py resets and reads them)
-for _fn in (alf_filter_luma, alf_filter_chroma, cc_filter):
-    _fn.launches = _fn.edge_launches = 0
-    _fn.launches_by_device = {}
 
 
 # ---- the per-stage entry point ----------------------------------------------

@@ -29,19 +29,15 @@ import torch
 from .. import trace
 from ..deblock import Deblocker
 from ..native import deblock as _native
-from .sao_device import download, upload
+from .device import Counters, as_wire, download, upload
 
 # directions rasterized by vvc_deblock.c's emitter and by the Python
 # fallback (_Rasterizer), whichever caller asked; frames
 # `deblock_frame_device` filtered and the bytes it moved each way; reset
 # with reset_stats() (which `fused_device.reset_stats` calls)
-stats = {"raster_native": 0, "raster_python": 0, "frames": 0, "up_bytes": 0,
-         "down_bytes": 0}
-
-
-def reset_stats():
-    stats.update(raster_native=0, raster_python=0, frames=0, up_bytes=0,
-                 down_bytes=0)
+stats = Counters("raster_native", "raster_python", "frames", "up_bytes",
+                 "down_bytes")
+reset_stats = stats.reset
 
 # padded (coef, tc_weight) rows indexed by (ml - 3) // 2  ->  ml in {3,5,7}
 _COEF = np.array([[53, 32, 11, 0, 0, 0, 0],
@@ -548,8 +544,7 @@ def deblock_frame_device(sps, pps, tabs, fb, slice_rpls, device="cuda"):
     if not on:
         return True
     with trace.span("deblock.upload"):
-        planes = {c: upload(np.ascontiguousarray(fb.planes[c], np.int16),
-                            dev, stats) for c in on}
+        planes = {c: upload(as_wire(fb.planes[c]), dev, stats) for c in on}
         segs = {(v, c): upload(arrays[c], dev, stats)
                 for v, arrays, counts in passes for c in on if counts[c]}
     for c in on:

@@ -5,14 +5,14 @@ Port of `ffvvc_tpu/ops/fused_device.py`.  The whole post-recon chain
     [residual-add] -> LMCS-inverse -> deblock-V -> deblock-H
                    -> SAO -> ALF -> CC-ALF
 
-runs on one torch device: the planes upload once (uint16 samples on the
-wire, sent as int16 because CUDA tensors of uint16 support little more than
-copies; samples are at most 12 bits so the bytes are the same), every
-intermediate stays on the device, and only the final planes download.
+runs on one torch device: the planes upload once, as int16 samples
+(`device.as_wire`: CUDA tensors of uint16 support little more than copies,
+and samples have at most 12 bits), every intermediate stays on the device,
+and only the final planes download.
 Every per-pixel parameter derives on the device from per-CTB and
 per-segment parameters that the host builds (the builders below are the
-JAX package's, copied as NumPy).  `stats` counts the bytes each way with
-the same accounting as the JAX package.
+JAX package's, copied as NumPy).  `stats` counts the bytes each way
+(`device.upload`, `device.download`).
 
 SAO, ALF and CC-ALF run as hand-written CUDA kernels (`sao_device`,
 `alf_device`; csrc/filters.cu) when the tensors are on CUDA, and as their
@@ -42,76 +42,56 @@ from .alf_device import (EDGE_BOTTOM, EDGE_LEFT, EDGE_RIGHT, EDGE_TOP,
                          block_rows, cc_filter)
 from . import deblock_device
 from .deblock_device import rasterize_deblock, luma_math, chroma_math
-from .sao_device import (_PARAM_ROWS, Slab, ctb_tables, expand_ctb,
-                         pack_params, pad_edge, sao_apply)
+from .device import Counters, Slab, as_wire, download, upload
+from .sao_device import ctb_tables, sao_apply
 
 # transfer accounting (bytes) and host-clock seconds of the two halves of
 # fused_frame_filters: building the parameters on the host (build_s) and
 # upload + chain + download (device_s, ends in the download's sync);
 # reset with reset_stats()
-stats = {"up_bytes": 0, "down_bytes": 0, "frames": 0, "build_s": 0.0,
-         "device_s": 0.0}
+stats = Counters("up_bytes", "down_bytes", "frames", build_s=0.0,
+                 device_s=0.0)
 
 # parameter arrays the chain uses as torch indices: int64 on the device
 _INDEX_KEYS = frozenset({"cls_r0", "cls_r3"})
-# arrays of the JAX chain's wire format that no stage of this chain reads
-# (the kernels compute the virtual-boundary rows from the row number)
-_UNREAD_KEYS = frozenset({"alf0_row", "alf0_vb", "alfc_row", "alfc_vb",
-                          "cc_row", "cc_skip"})
 
 
 def reset_stats():
     """Zero this chain's counters and those of the per-stage filters."""
     from . import alf_device, lmcs_device, sao_device
-    stats.update(up_bytes=0, down_bytes=0, frames=0, build_s=0.0,
-                 device_s=0.0)
+    stats.reset()
     for mod in (deblock_device, sao_device, alf_device, lmcs_device):
         mod.reset_stats()
 
 
-def _up(a):
-    """Stage a host array for upload, counting its bytes."""
-    a = np.ascontiguousarray(a)
-    stats["up_bytes"] += a.nbytes
-    return a
-
-
-def to_device(meta, arrs, device):
-    """The chain's per-frame parameter dict as tensors on `device`: uint16
-    planes travel as int16 (same bytes) and index arrays become int64 after
-    the upload.  `arrs` is what `fused_frame_filters` builds, or the numpy
-    arrays the JAX `_chain` receives: of those the nine SAO arrays of a
-    plane are packed into the one table `sao{c}_prm`, the luma ALF set of
-    each 4x4 block is reduced to the set of each CTB (`alf0_ctb_set`), and
-    the row tables no stage reads are dropped, all before the upload."""
+def to_device(arrs, device):
+    """The host arrays `build_params` builds as tensors on `device`, each
+    uploaded once and counted; the index arrays become int64 after the
+    upload."""
     dev = torch.device(device)
-    m = dict(meta)
-    cs = m["cs"]
-    arrs = {k: v for k, v in arrs.items() if k not in _UNREAD_KEYS}
-    for c in range(3):
-        if f"sao{c}_typ" in arrs:
-            H, W = arrs[f"p{c}"].shape
-            arrs[f"sao{c}_prm"] = pack_params(
-                {k: arrs.pop(f"sao{c}_{k}") for k in _PARAM_ROWS}, H, W,
-                cs >> (m["vs"] if c else 0), cs >> (m["hs"] if c else 0))
-    if "alf0_set" in arrs:
-        # blocks inherit their CTB's set, so every (cs / 4)-th is the CTB's
-        arrs["alf0_ctb_set"] = arrs.pop("alf0_set")[::cs // 4, ::cs // 4]
-    out = {}
-    for k, a in arrs.items():
-        # torch.from_numpy shares memory: copy read-only arrays (e.g. views
-        # of JAX arrays) rather than alias them as writable tensors
-        a = np.require(a, requirements=["C", "W"])
-        if a.dtype == np.uint16:
-            a = a.view(np.int16)
-        t = torch.from_numpy(a).to(dev)
-        out[k] = t.long() if k in _INDEX_KEYS else t
+    out = {k: upload(a, dev, stats) for k, a in arrs.items()}
+    for k in _INDEX_KEYS & out.keys():
+        out[k] = out[k].long()
     return out
 
 
 # ---------------------------------------------------------------------------
 # device math
 # ---------------------------------------------------------------------------
+
+def expand_ctb(a, cs_v, cs_h, H, W):
+    """Per-CTB [ch, cw] -> per-pixel [H, W] (repeat + crop)."""
+    return a.repeat_interleave(cs_v, 0).repeat_interleave(cs_h, 1)[:H, :W]
+
+
+def pad_edge(x, b):
+    """[H, W] -> [H + 2b, W + 2b], border samples repeated outward
+    (jnp.pad(mode="edge"))."""
+    H, W = x.shape
+    rows = torch.arange(-b, H + b, device=x.device).clamp_(0, H - 1)
+    cols = torch.arange(-b, W + b, device=x.device).clamp_(0, W - 1)
+    return x.index_select(0, rows).index_select(1, cols)
+
 
 def lmcs_apply(y, lut, mask, cs, H, W):
     """LMCS inverse mapping: LUT gather gated per CTB."""
@@ -203,7 +183,7 @@ def alf_classify_ctbs(y, edges, cs, bd, slab=None):
     (`alf_device.ctb_edges`).  Returns (class_idx, transpose_idx) int32
     [H / 4, W / 4].  In a CTB that the picture cuts short the rows and
     columns of the window past its end hold repeated samples, which only
-    the blocks cropped away read.  With a `Slab` (`sao_device.Slab`), y
+    the blocks cropped away read.  With a `Slab` (`device.Slab`), y
     holds a slab of the picture's rows, its halo included, and the result
     covers the 4x4 block rows of the slab's output rows
     (`alf_device.block_rows`): the CTB rows they lie in are classified,
@@ -246,11 +226,10 @@ def alf_classify_ctbs(y, edges, cs, bd, slab=None):
 # the fused chain
 # ---------------------------------------------------------------------------
 
-def chain(meta, a):
-    """meta: the structural items (a dict, or JAX's sorted tuple of
-    items); a: `to_device` tensors.  Returns the filtered planes as int16
-    (the uint16 wire samples), in the JAX `_chain`'s order."""
-    m = dict(meta)
+def chain(m, a):
+    """m: the structural items (`build_params`' dict); a: `to_device`
+    tensors.  Returns the filtered planes as int16 wire samples, in the JAX
+    `_chain`'s order."""
     bd = m["bd"]
     pix_max = (1 << bd) - 1
     cs = m["cs"]
@@ -485,17 +464,16 @@ def fused_frame_filters(sps, pps, tabs, fb, sh_list, alf_list, lmcs,
     meta, arrs = built
     t1 = time.perf_counter()
     with trace.span("fused.upload"):
-        arrs = to_device(meta, arrs, device)
+        arrs = to_device(arrs, device)
     with trace.span("fused.chain"):
         out = chain(meta, arrs)
     with trace.span("fused.download"):
-        res = [p.cpu().numpy() for p in out]  # synchronises with the device
+        # synchronises with the device
+        res = [download(p, stats) for p in out]
     stats["build_s"] += t1 - t0
     stats["device_s"] += time.perf_counter() - t1
-    nc = meta["nc"]
-    for c in range(nc):
-        stats["down_bytes"] += res[c].nbytes
-        fb.planes[c][:] = res[c]
+    for c, p in enumerate(res):
+        fb.planes[c][:] = p
     stats["frames"] += 1
     return True
 
@@ -503,8 +481,8 @@ def fused_frame_filters(sps, pps, tabs, fb, sh_list, alf_list, lmcs,
 @trace.traced("fused.build")
 def build_params(sps, pps, tabs, fb, sh_list, alf_list, lmcs, recon_jobs,
                  slice_rpls, res_planes):
-    """The chain's host half: its metadata and the host arrays staged for
-    upload, or None where an APS the frame names is missing."""
+    """The chain's host half: its metadata and the host arrays `to_device`
+    uploads, or None where an APS the frame names is missing."""
     nc = 3 if sps.chroma_format_idc else 1
     meta = {"bd": sps.bit_depth, "cs": sps.ctb_size_y, "nc": nc,
             "hs": sps.hshift[1] if nc == 3 else 0,
@@ -512,14 +490,14 @@ def build_params(sps, pps, tabs, fb, sh_list, alf_list, lmcs, recon_jobs,
     arrs = {}
     # --- planes (+ deferred residual); uint16/int16 on the wire ---
     for c in range(nc):
-        arrs[f"p{c}"] = _up(np.asarray(fb.planes[c], np.uint16))
+        arrs[f"p{c}"] = as_wire(fb.planes[c])
     meta["has_res"] = res_planes is not None
     if res_planes is not None:
         # spec residual range is [-2^15, 2^15-1] == int16 — except under
         # sps_extended_precision_flag (range up to +-2^20)
         rdt = np.int32 if sps.r.sps_extended_precision_flag else np.int16
         for c in range(nc):
-            arrs[f"res{c}"] = _up(np.asarray(res_planes[c], rdt))
+            arrs[f"res{c}"] = np.asarray(res_planes[c], rdt)
     # --- LMCS ---
     meta["has_lmcs"] = False
     if lmcs is not None:
@@ -531,8 +509,8 @@ def build_params(sps, pps, tabs, fb, sh_list, alf_list, lmcs, recon_jobs,
                 mask[ry, rx] = 1
         if mask.any():
             meta["has_lmcs"] = True
-            arrs["lmcs_lut"] = _up(np.asarray(lmcs.inv_lut, np.int32))
-            arrs["lmcs_mask"] = _up(mask)
+            arrs["lmcs_lut"] = np.asarray(lmcs.inv_lut, np.int32)
+            arrs["lmcs_mask"] = mask
     # --- deblock segments ---
     with trace.span("fused.deblock_raster"):
         for d, vertical in ((0, True), (1, False)):
@@ -541,14 +519,14 @@ def build_params(sps, pps, tabs, fb, sh_list, alf_list, lmcs, recon_jobs,
             for c in range(nc):
                 meta[f"db{d}c{c}"] = bool(counts[c])
                 if counts[c]:
-                    arrs[f"db{d}c{c}"] = _up(segs[c])
+                    arrs[f"db{d}c{c}"] = segs[c]
     # --- SAO ---
     with trace.span("fused.sao_tables"):
         tables = ctb_tables(SaoFilter(sps, pps, tabs, fb), nc)
     for c in range(nc):
         meta[f"sao{c}"] = tables[c] is not None
         if tables[c] is not None:
-            arrs[f"sao{c}_prm"] = _up(tables[c])
+            arrs[f"sao{c}_prm"] = tables[c]
     # --- ALF ---
     for key in ("alf0", "alf1", "alf2", "cc1", "cc2"):
         meta[key] = False
@@ -559,16 +537,12 @@ def build_params(sps, pps, tabs, fb, sh_list, alf_list, lmcs, recon_jobs,
                 ap = _alf_ctb_params(sps, pps, tabs, sh_list, alf_list)
             except (KeyError, AttributeError, IndexError):
                 return None
-            for k, v in ap.items():
-                arrs[k] = _up(v)
+            arrs.update(ap)
             if "alf0_ctb_set" in ap:
                 meta["alf0"] = True
                 r0, r3, s1, e3, ac = _cls_arrays(pps.height, sps.ctb_size_y)
-                arrs["cls_r0"] = _up(r0)
-                arrs["cls_r3"] = _up(r3)
-                arrs["blk_start1"] = _up(s1)
-                arrs["blk_end3"] = _up(e3)
-                arrs["blk_ac"] = _up(ac)
+                arrs.update(cls_r0=r0, cls_r3=r3, blk_start1=s1,
+                            blk_end3=e3, blk_ac=ac)
         for key in ("alf1", "alf2", "cc1", "cc2"):
             meta[key] = f"{key}_set" in ap
     return meta, arrs

@@ -53,6 +53,7 @@ import torch.nn.functional as F
 from .. import trace
 from . import data as D
 from . import resolve_device
+from .device import Counters, download, upload
 from ..ctu import INTRA_PLANAR, INTRA_DC, INTRA_HORZ, INTRA_VERT, \
     INTRA_LT_CCLM
 
@@ -85,20 +86,13 @@ _DIV_SIG_NP = np.array([0, 7, 6, 5, 5, 4, 4, 3, 3, 2, 2, 1, 1, 1, 1, 0],
 # queue_s the uploads and the queueing of every bucket (no synchronisation
 # of its own), download_s the download, which waits for the device.
 # last_plan_s is the walk and the build of the last frame, CCLM included.
-_COUNTS = ("frames", "declined", "units", "waves", "simple_buckets",
-           "angular_buckets", "mip_buckets", "cclm_buckets", "cclm_units",
-           "up_bytes", "down_bytes")
-_SECONDS = ("walk_s", "build_s", "cclm_s", "residual_s", "queue_s",
-            "download_s", "last_plan_s")
-stats = {}
-
-
-def reset_stats():
-    stats.update(dict.fromkeys(_COUNTS, 0))
-    stats.update(dict.fromkeys(_SECONDS, 0.0))
-
-
-reset_stats()
+stats = Counters("frames", "declined", "units", "waves", "simple_buckets",
+                 "angular_buckets", "mip_buckets", "cclm_buckets",
+                 "cclm_units", "up_bytes", "down_bytes",
+                 **dict.fromkeys(("walk_s", "build_s", "cclm_s",
+                                  "residual_s", "queue_s", "download_s",
+                                  "last_plan_s"), 0.0))
+reset_stats = stats.reset
 
 
 # ---- constants, held once per device ----------------------------------------
@@ -879,23 +873,20 @@ def frame_device_intra(recon_jobs, sps, pps, tabs, fb, device="cuda"):
     # --- 4. device: every upload once, then every bucket in order --------
     t3 = time.perf_counter()
 
-    def up(a):
-        a = np.ascontiguousarray(a)
-        stats["up_bytes"] += a.nbytes
-        return torch.from_numpy(a).to(dev, copy=True)
-
-    luma = up(fb.planes[0].reshape(-1))
-    resl = up(res_planes[0].reshape(-1))
+    luma = upload(fb.planes[0].reshape(-1), dev, stats)
+    resl = upload(res_planes[0].reshape(-1), dev, stats)
     chroma = resc = None
     if chroma_on:
-        chroma = up(np.stack([fb.planes[1], fb.planes[2]]).reshape(-1))
-        resc = up(np.stack([res_planes[1], res_planes[2]]).reshape(-1))
-    geo_d = up(geo_all)
+        chroma = upload(np.stack([fb.planes[1], fb.planes[2]]).reshape(-1),
+                        dev, stats)
+        resc = upload(np.stack([res_planes[1], res_planes[2]]).reshape(-1),
+                      dev, stats)
+    geo_d = upload(geo_all, dev, stats)
     # the gather plans of every unit at once, each row with its plane's
     # width
-    edges_d = _edge_idx(geo_d, up(np.where(isc[:, None] > 0, Wc, W)
-                                  .astype(np.int32)))
-    blob_d = up(np.concatenate(blobs)) if blobs else None
+    edges_d = _edge_idx(geo_d, upload(np.where(isc[:, None] > 0, Wc, W)
+                                      .astype(np.int32), dev, stats))
+    blob_d = upload(np.concatenate(blobs), dev, stats) if blobs else None
     n_cclm = flat = 0
     for kind, s0, s1, w, h, is_luma in launches:
         if kind == K_CCLM:
@@ -922,14 +913,9 @@ def frame_device_intra(recon_jobs, sps, pps, tabs, fb, device="cuda"):
     t4 = time.perf_counter()
     stats["queue_s"] += t4 - t3
 
-    def down(t):
-        a = t.cpu().numpy()
-        stats["down_bytes"] += a.nbytes
-        return a
-
-    fb.planes[0][:] = down(luma).reshape(H, W)
+    fb.planes[0][:] = download(luma, stats).reshape(H, W)
     if chroma_on:
-        cc = down(chroma).reshape(2, Hc, Wc)
+        cc = download(chroma, stats).reshape(2, Hc, Wc)
         fb.planes[1][:] = cc[0]
         fb.planes[2][:] = cc[1]
     stats["download_s"] += time.perf_counter() - t4

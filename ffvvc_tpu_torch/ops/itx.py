@@ -28,19 +28,14 @@ import torch
 
 from .. import trace
 from . import data as D
+from .device import Counters, download, upload
 
 DCT2, DST7, DCT8 = 0, 1, 2
 _MATS = {DCT2: D.dct2_matrix, DST7: D.dst7_matrix, DCT8: D.dct8_matrix}
 
 # what frame_device_residuals did since reset_stats()
-stats = {}
-
-
-def reset_stats():
-    stats.update(frames=0, buckets=0, tbs=0, up_bytes=0, down_bytes=0)
-
-
-reset_stats()
+stats = Counters("frames", "buckets", "tbs", "up_bytes", "down_bytes")
+reset_stats = stats.reset
 
 
 @functools.lru_cache()
@@ -201,15 +196,13 @@ def frame_device_residuals(recon_jobs, tabs, bit_depth: int, device="cuda"):
             continue
         stats["buckets"] += 1
         stats["tbs"] += len(tbs)
-        stats["up_bytes"] += coeffs.nbytes
         launched.append((tbs, itx_batch(
-            torch.from_numpy(coeffs).to(dev), w, h, trh, trv,
-            log2_range=l2r, bit_depth=bit_depth)))
+            upload(coeffs, dev, stats), w, h, trh, trv, log2_range=l2r,
+            bit_depth=bit_depth)))
     stats["frames"] += 1
     for tbs, out in launched:
         if use_device:
-            out = out.cpu().numpy()
-            stats["down_bytes"] += out.nbytes
+            out = download(out, stats)
         for i, t in enumerate(tbs):
             t.coeffs = out[i].astype(np.int64)
             t.residual_ready = True

@@ -15,16 +15,13 @@ import numpy as np
 import torch
 
 from .. import trace
+from .device import Counters, as_wire, download, upload
 from .fused_device import lmcs_apply
-from .sao_device import as_wire, download, upload
 
 # frames `lmcs_frame_device` mapped and the bytes it moved each way; reset
 # with reset_stats() (which `fused_device.reset_stats` calls)
-stats = {"frames": 0, "up_bytes": 0, "down_bytes": 0}
-
-
-def reset_stats():
-    stats.update(frames=0, up_bytes=0, down_bytes=0)
+stats = Counters("frames", "up_bytes", "down_bytes")
+reset_stats = stats.reset
 
 
 @trace.traced("lmcs")

@@ -50,46 +50,26 @@ import numpy as np
 import torch
 
 from .. import trace
-from . import _build
+from .device import (Counters, as_wire, counted, download, kernel_device,
+                     one_device, run, upload)
 from .inter_device import _bdof, _dmvr_refine
-from .sao_device import as_wire, count_launch, one_device, stream_of
 
 I32, I64 = torch.int32, torch.int64
 
 # What the calls since reset_stats() did.  `launches` counts batched device
 # calls (a put table's kernel launch, or one put bucket of the plain twin,
-# prefetch, refine, PROF or finals bucket each), not CUDA kernels;
-# `put_kernel_launches` the launches of the put kernel (one a call and
-# device).  `put_buckets` counts the distinct put groups (reference plane,
-# size, filter class, wrap, box), whichever way they ran.  Where the time
-# goes is in the spans of `frame_device_mc` (trace.py: `mc` and its phases
-# `mc.collect` ... `mc.writeback`).
-_COUNTS = ("calls", "descriptors", "put_buckets", "put_blocks",
-           "put_kernel_launches", "bilin_buckets", "dmvr_subblocks",
-           "bdof_blocks", "prof_blocks", "gpm_blocks", "weighted_blocks",
-           "finals_buckets", "launches", "up_bytes", "down_bytes")
-stats = {}
-
-
-def reset_stats():
-    stats.update(dict.fromkeys(_COUNTS, 0))
-    stats["put_class"] = [0, 0, 0, 0]     # put buckets: copy, h, v, hv
-
-
-reset_stats()
-
-
-def _up(a, dev, dtype=None):
-    """One host array to `dev`, counted."""
-    a = np.ascontiguousarray(a, dtype)
-    stats["up_bytes"] += a.nbytes
-    return torch.from_numpy(a).to(dev)
-
-
-def _down(t):
-    a = t.cpu().numpy()
-    stats["down_bytes"] += a.nbytes
-    return a
+# prefetch, refine, PROF or finals bucket each), not CUDA kernels; the put
+# kernel's own launches are `put_table.launches`.  `put_buckets` counts the
+# distinct put groups (reference plane, size, filter class, wrap, box),
+# whichever way they ran; `put_class` the put buckets by class (copy, h, v,
+# hv).  Where the time goes is in the spans of `frame_device_mc` (trace.py:
+# `mc` and its phases `mc.collect` ... `mc.writeback`).
+stats = Counters("calls", "descriptors", "put_buckets", "put_blocks",
+                 "bilin_buckets", "dmvr_subblocks", "bdof_blocks",
+                 "prof_blocks", "gpm_blocks", "weighted_blocks",
+                 "finals_buckets", "launches", "up_bytes", "down_bytes",
+                 put_class=[0, 0, 0, 0])
+reset_stats = stats.reset
 
 
 @functools.lru_cache()
@@ -512,28 +492,24 @@ def put_table_ref(planes, table, bd):
     return out
 
 
+@counted
 def put_table(planes, table, bd):
     """Every put of `table` into one new int32 buffer [table.n_out].
 
     planes: the call's reference planes, int16 [H, W] tensors on one device
     (None where the table reads none), indexed by the rows' plane field.
-    The table goes up as one int32 array (`PutTable.packed`).  On CUDA
-    tensors one launch of `mc_put_kernel` (csrc/mc.cu) on their card's
-    current stream computes every row, counted in `put_table.launches`,
-    per card, and `stats["put_kernel_launches"]`; on CPU tensors
-    `put_table_ref` does.  Another device raises; nothing falls back."""
-    dev = one_device("put_table", planes)
+    The table goes up as one int32 array (`PutTable.packed`), counted on
+    the CPU too, so that up_bytes is what a card takes whichever device
+    runs the puts.  On CUDA tensors one launch of `mc_put_kernel`
+    (csrc/mc.cu) computes every row; on CPU tensors `put_table_ref` does
+    (`device.kernel_device`)."""
+    dev = kernel_device("put_table", planes, ())
     classes, blocks, smem = table.layout()
-    # one upload, counted on the CPU too, so that up_bytes is what a card
-    # takes whichever device runs the puts
-    tab = _up(table.packed(planes, classes), dev)
+    tab = upload(table.packed(planes, classes), dev, stats)
     if dev.type == "cpu":
         return put_table_ref(planes, table, bd)
-    if dev.type != "cuda":
-        raise ValueError(f"put_table: unsupported device {dev}")
-    if any(p is not None and (p.dtype != torch.int16 or p.dim() != 2 or
-                              not p.is_contiguous()) for p in planes):
-        raise ValueError("put_table: contiguous int16 [H, W] planes expected")
+    if any(p is not None and p.dim() != 2 for p in planes):
+        raise ValueError("put_table: [H, W] planes expected")
     if not 8 <= bd <= 12 or smem > SMEM_LIMIT:
         raise ValueError(f"put_table: bit depth {bd}, {smem} bytes of "
                          "shared memory")
@@ -542,30 +518,19 @@ def put_table(planes, table, bd):
         raise ValueError("put_table: a row names a plane it was not given")
     out = torch.empty(table.n_out, dtype=I32, device=dev)
     if blocks:
-        _put_launch(tab, len(planes), classes, blocks, smem, out, bd)
+        stats["launches"] += 1
+        run(put_table, "ffvvc_mc_put", dev,
+            *put_args(tab, len(planes), classes, blocks, smem, out, bd))
     return out
 
 
-def _put_launch(tab, n_planes, classes, blocks, smem, out, bd):
-    """One launch of the put kernel on the packed table `tab` (a CUDA
-    tensor) into `out`."""
-    dev = out.device
-    lf, cf = _filter_banks(str(dev))
+def put_args(tab, n_planes, classes, blocks, smem, out, bd):
+    """The put kernel's launcher arguments, before the stream, for the
+    packed table `tab` (a CUDA tensor) and the output buffer `out`."""
+    lf, cf = _filter_banks(str(out.device))
     at = tab.data_ptr() + 4 * PLANE_COLS * n_planes
-    with torch.cuda.device(dev):
-        err = _build.lib().ffvvc_mc_put(
-            tab.data_ptr(), at, len(classes), at + 4 * classes.size,
-            lf.data_ptr(), cf.data_ptr(), out.data_ptr(), blocks, smem, bd,
-            stream_of(out))
-    _build.check(err, "ffvvc_mc_put")
-    count_launch(put_table, dev)
-    stats["put_kernel_launches"] += 1
-    stats["launches"] += 1
-
-
-# kernel launches, in all and per card
-put_table.launches = 0
-put_table.launches_by_device = {}
+    return (tab.data_ptr(), at, len(classes), at + 4 * classes.size,
+            lf.data_ptr(), cf.data_ptr(), out.data_ptr(), blocks, smem, bd)
 
 
 # mesh-sharded puts: the rows of a call's put table partition over the
@@ -626,23 +591,23 @@ def mc_put_batch(ref_plane, xs, ys, frac_x, frac_y, w, h, is_luma, bd,
     cols = [np.asarray(xs), np.asarray(ys), frac_x, frac_y]
     if box is not None:
         cols += list(np.asarray(box).reshape(len(cols[0]), 4).T)
-    ref = _up(as_wire(ref_plane), dev)
+    ref = upload(as_wire(ref_plane), dev, stats)
     table, _ = put_table_of([(0, ref.shape, np.stack(cols, axis=1), w, h,
                               is_luma, hf_idx, vf_idx, fclass, wrap,
                               box is not None)])
     out = _put_sharded([ref], table, mesh, int(bd))
-    return _down(out).reshape(-1, h, w)
+    return download(out, stats).reshape(-1, h, w)
 
 
 def mc_avg_batch(s0, s1, bd, device="cuda"):
     dev = torch.device(device)
-    return _down(_mc_avg_batch(_up(s0, dev, np.int32), _up(s1, dev, np.int32),
-                               int(bd)))
+    s0, s1 = (upload(np.asarray(s, np.int32), dev, stats) for s in (s0, s1))
+    return download(_mc_avg_batch(s0, s1, int(bd)), stats)
 
 
 def mc_uni_batch(val, bd, device="cuda"):
-    return _down(_mc_uni_batch(_up(val, torch.device(device), np.int32),
-                               int(bd)))
+    val = upload(np.asarray(val, np.int32), torch.device(device), stats)
+    return download(_mc_uni_batch(val, int(bd)), stats)
 
 
 # ---- decoder-side batched dispatch (ops/itx.py cost-dispatch analogue) -----
@@ -654,9 +619,7 @@ class _Planes:
     """Reference planes on the device for the length of one
     frame_device_mc call: each goes up once, as 16-bit samples, whatever
     the number of puts that read it; `wire` holds them in the order of
-    first use, which is the put table's plane index.  Not kept across
-    calls: under row progress a reference frame is still being filtered
-    and only the rows the caller waited for are final."""
+    first use, which is the put table's plane index."""
 
     def __init__(self, dev):
         self.dev = dev
@@ -668,7 +631,7 @@ class _Planes:
         k = self.at.get(id(plane))
         if k is None:
             k = self.at[id(plane)] = len(self.wire)
-            self.wire.append(_up(as_wire(plane), self.dev))
+            self.wire.append(upload(as_wire(plane), self.dev, stats))
         return k
 
     def __call__(self, plane):
@@ -713,8 +676,8 @@ class _Flat:
     def index(self, slots, dev):
         """Slots of one size -> (that size's tensor, their positions)."""
         size = self.size[slots[0][0]]
-        idx = _up(np.fromiter((self.base[k] + i for k, i in slots),
-                              np.int64, len(slots)), dev)
+        idx = upload(np.fromiter((self.base[k] + i for k, i in slots),
+                                 np.int64, len(slots)), dev, stats)
         return self.flat[size], idx
 
     def take(self, slots, dev):
@@ -763,7 +726,7 @@ def _dmvr_phase(D, rpls, bd, planes):
     vals = {}
     for key, b in buckets.items():
         _pid, pw, ph, mclass, wrap = key
-        prm = _up(b["prm"], dev, np.int32)               # [B, 6]
+        prm = upload(np.asarray(b["prm"], np.int32), dev, stats)   # [B, 6]
         vals[key] = _dmvr_bilin_batch(
             planes(b["plane"]), prm[:, 0], prm[:, 1], prm[:, 2:4],
             prm[:, 4:6], pw, ph, int(bd), mclass, wrap)
@@ -785,7 +748,7 @@ def _dmvr_phase(D, rpls, bd, planes):
         refined.append((items, dmv, skip))
     # every size's refinement is queued before the first download waits
     with trace.span("mc.download"):
-        refined = [(items, _down(dmv), _down(skip))
+        refined = [(items, download(dmv, stats), download(skip, stats))
                    for items, dmv, skip in refined]
     out = {}
     lim = 1 << 17
@@ -993,11 +956,7 @@ def frame_device_mc(native_jobs, sps, bd, device="cuda", mesh=None):
     filter class), split over the "tile" devices of `mesh` when one is
     given; the uni/bi/weighted finals batch per size.  A failure raises:
     nothing is handed back to the host MC."""
-    row = None
-    if trace.recording():
-        rows = {ry for _, ctus in native_jobs for _, _, ry in ctus}
-        row = rows.pop() if len(rows) == 1 else None
-    with trace.span("mc", row=row):
+    with trace.span("mc"):
         _frame_mc(native_jobs, sps, bd, torch.device(device), mesh)
 
 
@@ -1132,8 +1091,9 @@ def _frame_mc(native_jobs, sps, bd, dev, mesh):
             puts, at = flat.index([s for s, _, _, _ in prof_jobs], dev)
             puts[at] = _prof_apply_batch(
                 puts[at], flat.take([r for _, r, _, _ in prof_jobs], dev),
-                _up(np.stack([dx for _, _, dx, _ in prof_jobs]), dev),
-                _up(np.stack([dy for _, _, _, dy in prof_jobs]), dev), int(bd))
+                upload(np.stack([j[2] for j in prof_jobs]), dev, stats),
+                upload(np.stack([j[3] for j in prof_jobs]), dev, stats),
+                int(bd))
             stats["prof_blocks"] += len(prof_jobs)
             stats["launches"] += 1
 
@@ -1169,7 +1129,8 @@ def _frame_mc(native_jobs, sps, bd, dev, mesh):
                 out = _mc_uni_batch(s0, int(bd))
             elif kind == "gpm":
                 out = _mc_gpm_batch(
-                    s0, s1, _up(np.stack([wgt for _, wgt in wps]), dev),
+                    s0, s1,
+                    upload(np.stack([wgt for _, wgt in wps]), dev, stats),
                     int(bd))
                 stats["gpm_blocks"] += len(wps)
             elif kind == "bdof":
@@ -1179,7 +1140,7 @@ def _frame_mc(native_jobs, sps, bd, dev, mesh):
                     int(bd))
                 stats["bdof_blocks"] += len(wps)
             else:                      # weighted: (denom, w0, w1, o0, o1)
-                wa = _up(wps, dev, np.int32)
+                wa = upload(np.asarray(wps, np.int32), dev, stats)
                 stats["weighted_blocks"] += len(wps)
                 if kind == "bi_w":
                     out = _mc_w_avg_batch(s0, s1,
@@ -1192,7 +1153,7 @@ def _frame_mc(native_jobs, sps, bd, dev, mesh):
             stats["launches"] += 1
             outs.append(out.to(torch.int16))    # pixels: at most 12 bits
         with trace.span("mc.download"):
-            outs = [_down(out) for out in outs]
+            outs = [download(out, stats) for out in outs]
     with trace.span("mc.writeback"):
         for ((wc, hc, _), (_, _, _, wbs)), out in zip(finals.items(), outs):
             for i, (plane, xc, yc, lut) in enumerate(wbs):

@@ -18,13 +18,11 @@ it filters a band of the picture's rows (the mesh's cut,
 `ffvvc_tpu/ops/sao_device.py::sao_frame_device`): planes up, one call of
 `sao_apply`, planes down.  The fused chain (`fused_device.chain`) calls
 `sao_apply` with the same tables.  `stats` counts the frames it filtered
-and the bytes it moved each way; `upload` and `download` are the copies of
-all four per-stage entry points, each counting into its module's `stats`.
+and the bytes it moved each way (`device.upload`, `device.download`).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -32,124 +30,19 @@ import torch
 from .. import trace
 from ..sao import SAO_BAND, SAO_EDGE, SaoFilter, _EDGE_IDX
 
-from . import _build
+from .device import (MIN_CTB, Counters, Slab, as_wire, counted, ctb_rows,
+                     download, kernel_device, log2, run, upload)
 
 # rows of the per-CTB int32 [11, ch, cw] table the kernel reads: typ, m1,
 # offs[0..4], then the kept ranges lo | hi << 16 (CTB coordinates): rows of
 # the first column, rows of the last column, columns of the first row,
 # columns of the last row
 TABLE_ROWS = 11
-# the nine per-CTB arrays of the JAX fused chain (`_sao_ctb_params` there),
-# which `pack_params` turns into the table: offs takes five rows
-_PARAM_ROWS = ("typ", "m1", "offs", "kl", "kr", "kt", "kb", "ax", "bx")
-# the narrowest CTB the kernels' tiles are laid out for
-MIN_CTB = 16
 
 # frames `sao_frame_device` filtered and the bytes it moved each way;
 # reset with reset_stats() (which `fused_device.reset_stats` calls)
-stats = {"frames": 0, "up_bytes": 0, "down_bytes": 0}
-
-
-def reset_stats():
-    stats.update(frames=0, up_bytes=0, down_bytes=0)
-
-
-class Slab(NamedTuple):
-    """The rows a kernel launch filters, in picture rows: the output holds
-    rows [row0, row0 + rows) of a plane pic_h rows high, and the source
-    buffer holds the rows from row0 - top on, the slab's halo above
-    included (and below it whatever rows the buffer has left).  Rows are
-    read as the whole picture reads them, clamped to the picture, and
-    further to the rows the buffer holds: a slab's output equals the same
-    rows of a whole-picture launch wherever its halo covers what they
-    read.  `whole(H)` is the whole picture."""
-    row0: int
-    rows: int
-    pic_h: int
-    top: int = 0
-
-    @classmethod
-    def whole(cls, H):
-        return cls(0, H, H, 0)
-
-    def span(self, R):
-        """(rlo, rhi): the picture rows a buffer of R rows holds, inside
-        the picture."""
-        base = self.row0 - self.top
-        return max(base, 0), min(base + R, self.pic_h) - 1
-
-    def local(self, ys, R):
-        """Picture rows ys (a tensor) clamped to what a buffer of R rows
-        holds, as indices into the buffer."""
-        rlo, rhi = self.span(R)
-        return ys.clamp(rlo, rhi) - (self.row0 - self.top)
-
-    def args(self, R):
-        """The five ints a launcher takes for a buffer of R rows:
-        row0, rows, pic_h, the buffer's first picture row, R."""
-        return (ctypes.c_int * 5)(self.row0, self.rows, self.pic_h,
-                                  self.row0 - self.top, R)
-
-    def check(self, name, R):
-        if not (0 <= self.top and self.top + self.rows <= R and
-                0 <= self.row0 and self.rows > 0 and
-                self.row0 + self.rows <= self.pic_h):
-            raise ValueError(f"{name}: slab {tuple(self)} does not fit a "
-                             f"buffer of {R} rows")
-
-    def at_row0(self, x):
-        """Address of the buffer's row row0 (its row `top`)."""
-        return x.data_ptr() + self.top * x.stride(0) * x.element_size()
-
-
-def ctb_rows(a, ys, cs_v, cs_h, W):
-    """Per-CTB [.., ch, cw] -> per-sample [.., len(ys), W] for the picture
-    rows ys (a tensor): each sample takes its CTB's value."""
-    return a.index_select(-2, ys // cs_v).repeat_interleave(
-        cs_h, -1)[..., :W]
-
-
-def expand_ctb(a, cs_v, cs_h, H, W):
-    """Per-CTB [ch, cw] -> per-pixel [H, W] (repeat + crop)."""
-    return a.repeat_interleave(cs_v, 0).repeat_interleave(cs_h, 1)[:H, :W]
-
-
-def pad_edge(x, b):
-    """[H, W] -> [H + 2b, W + 2b], border samples repeated outward
-    (jnp.pad(mode="edge"))."""
-    H, W = x.shape
-    rows = torch.arange(-b, H + b, device=x.device).clamp_(0, H - 1)
-    cols = torch.arange(-b, W + b, device=x.device).clamp_(0, W - 1)
-    return x.index_select(0, rows).index_select(1, cols)
-
-
-def _log2(n, what):
-    if n <= 0 or n & (n - 1):
-        raise ValueError(f"{what} must be a power of two, got {n}")
-    return n.bit_length() - 1
-
-
-def stream_of(t):
-    """The raw handle of PyTorch's current stream on t's device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def one_device(name, tensors):
-    """The device that all tensors of one launch lie on (None entries
-    skipped); ValueError when they span devices, before anything runs."""
-    devs = {t.device for t in tensors if t is not None}
-    if len(devs) != 1:
-        raise ValueError(f"{name}: the tensors of one launch must lie on "
-                         f"one device, not {sorted(map(str, devs))}")
-    return devs.pop()
-
-
-def count_launch(wrapper, dev):
-    """One launch of wrapper's kernel on CUDA device dev: its total and its
-    count on that card (`launches_by_device`, keyed by device index)."""
-    wrapper.launches += 1
-    by = wrapper.launches_by_device
-    by[dev.index] = by.get(dev.index, 0) + 1
+stats = Counters("frames", "up_bytes", "down_bytes")
+reset_stats = stats.reset
 
 
 def _ranges(lo, hi):
@@ -332,15 +225,14 @@ def sao_apply_ref(planes, prms, sizes, shift, pix_max, slabs=None):
             for x, p, (cs_v, cs_h), sl in zip(planes, prms, sizes, slabs)]
 
 
+@counted
 def sao_apply(planes, prms, sizes, shift, pix_max, slabs=None):
     """SAO of up to three planes: one launch of the CUDA kernel on CUDA
-    tensors, `sao_apply_ref` on CPU tensors.  Same arguments as
-    `sao_apply_ref`; returns new int16 [rows, W] tensors."""
-    dev = one_device("sao_apply", (*planes, *prms))
+    tensors, `sao_apply_ref` on CPU tensors (`device.kernel_device`).  Same
+    arguments as `sao_apply_ref`; returns new int16 [rows, W] tensors."""
+    dev = kernel_device("sao_apply", planes, prms)
     if dev.type == "cpu":
         return sao_apply_ref(planes, prms, sizes, shift, pix_max, slabs)
-    if dev.type != "cuda":
-        raise ValueError(f"sao_apply: unsupported device {dev}")
     n = len(planes)
     if not 1 <= n <= 3 or len(prms) != n or len(sizes) != n:
         raise ValueError("sao_apply: one to three planes, each with its "
@@ -351,58 +243,21 @@ def sao_apply(planes, prms, sizes, shift, pix_max, slabs=None):
         R, W = x.shape
         sl = sl or Slab.whole(R)
         sl.check("sao_apply", R)
-        if x.dtype != torch.int16 or p.dtype != torch.int32 or \
-                not (x.is_cuda and p.is_cuda and x.is_contiguous()
-                     and p.is_contiguous()) or x.data_ptr() % 8:
-            raise ValueError("sao_apply: contiguous, 8-byte aligned CUDA "
-                             "int16 planes and int32 parameters expected")
         ch, cw = p.shape[1:]
         if p.shape[0] != TABLE_ROWS or ch * cs_v < sl.pic_h or \
                 cw * cs_h < W or W % 4 or min(cs_v, cs_h) < MIN_CTB:
-            raise ValueError("sao_apply: parameters [11, ch, cw] must cover "
-                             "the plane, its width a multiple of 4 and its "
-                             f"CTB at least {MIN_CTB}")
+            raise ValueError("sao_apply: parameters [11, ch, cw] must "
+                             "cover the plane, its width a multiple of "
+                             f"4 and its CTB at least {MIN_CTB}")
         out = x.new_empty((sl.rows, W))
         outs.append(out)
         ptrs += [sl.at_row0(x), out.data_ptr(), p.data_ptr()]
-        dims += [W, ch, cw, _log2(cs_v, "cs_v"), _log2(cs_h, "cs_h")]
+        dims += [W, ch, cw, log2(cs_v, "cs_v"), log2(cs_h, "cs_h")]
         rows += list(sl.args(R))
-    with torch.cuda.device(dev):
-        err = _build.lib().ffvvc_sao(
-            n, (ctypes.c_void_p * len(ptrs))(*ptrs),
-            (ctypes.c_int * len(dims))(*dims),
-            (ctypes.c_int * len(rows))(*rows), shift, pix_max,
-            stream_of(planes[0]))
-    _build.check(err, "ffvvc_sao")
-    count_launch(sao_apply, dev)
+    run(sao_apply, "ffvvc_sao", dev, n, (ctypes.c_void_p * len(ptrs))(*ptrs),
+        (ctypes.c_int * len(dims))(*dims), (ctypes.c_int * len(rows))(*rows),
+        shift, pix_max)
     return outs
-
-
-# kernel launches, in all and per card (chip_smoke.py resets and reads them)
-sao_apply.launches = 0
-sao_apply.launches_by_device = {}
-
-
-def as_wire(plane):
-    """A host plane as the contiguous int16 array that travels to the
-    device (samples have at most 12 bits)."""
-    return np.ascontiguousarray(plane, dtype=np.int16)
-
-
-def upload(a, dev, counter):
-    """The host array `a` as a tensor on `dev`, its bytes counted in
-    `counter["up_bytes"]`."""
-    a = np.ascontiguousarray(a)
-    counter["up_bytes"] += a.nbytes
-    return torch.from_numpy(a).to(dev)
-
-
-def download(t, counter):
-    """The tensor `t` as a host array (waits for the card), its bytes
-    counted in `counter["down_bytes"]`."""
-    a = t.cpu().numpy()
-    counter["down_bytes"] += a.nbytes
-    return a
 
 
 @trace.traced("sao")

@@ -18,7 +18,7 @@ maps.  Here SAO, ALF and CC-ALF run the hand kernels of csrc/filters.cu
 slab, one launch per slab for all the planes a kernel takes, from the same
 per-CTB tables and edge words as the per-stage filters (`ctb_tables`,
 `ctb_edges`, `alf_classify_ctbs`): each launch is told its slab's first
-picture row and the picture's height (`sao_device.Slab`).  Residual add,
+picture row and the picture's height (`device.Slab`).  Residual add,
 LMCS and deblocking are plain PyTorch, deblocking in the slab mode of
 `luma_math`/`chroma_math`.  Pictures whose slices or tiles forbid filtering
 across their boundaries take SAO's restore regions (in its table) and the
@@ -55,7 +55,8 @@ from ..ops.alf_device import (EDGE_BOTTOM, EDGE_LEFT, EDGE_RIGHT, EDGE_TOP,
 from ..ops.deblock_device import (chroma_math, luma_math, rasterize_deblock,
                                   seg_array)
 from ..ops.fused_device import _alf_ctb_params, alf_classify_ctbs
-from ..ops.sao_device import Slab, as_wire, ctb_rows, ctb_tables, sao_apply
+from ..ops.device import Slab, as_wire, ctb_rows
+from ..ops.sao_device import ctb_tables, sao_apply
 from .mesh import (cut_rows, exchange_row_halo, join_rows, make_mesh_exact,
                    slab_rows)
 

@@ -36,7 +36,7 @@ def main(argv=None):
     import chip_smoke as smoke
     from ..ops import _build, alf_device
     from ..ops.kernel_inputs import alf_luma_inputs
-    from ..ops.sao_device import Slab, stream_of
+    from ..ops.device import Slab, stream_of
 
     print(smoke.card())
     with tempfile.TemporaryDirectory() as tmp:
@@ -70,7 +70,7 @@ def main(argv=None):
                 ti.data_ptr(), ctb_set.data_ptr(), ctb_set.shape[1],
                 cf.data_ptr(), cl.data_ptr(),
                 *[None] * ((args.args or 14) - 13), cs.bit_length() - 1,
-                pix_max, stream_of(src)), "the other ffvvc_alf_luma")
+                pix_max, stream_of(dev)), "the other ffvvc_alf_luma")
             return out
         if not torch.equal(ours(), theirs()):
             raise AssertionError("the two kernels disagree")

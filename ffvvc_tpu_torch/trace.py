@@ -45,15 +45,16 @@ decoding thread):
                           reference's rows or pixel job, the mesh's drain
             wait.pixels   blocked on the pixel queue: `pipeline_depth`
                           jobs in flight, or the drain at the end of a call
-            mc            `ops/mc_device.py::frame_device_mc`, one call
-                          (whole frame, or one CTU row band: `row`)
+            mc            `ops/mc_device.py::frame_device_mc`, one call a
+                          frame
             mc.collect, mc.dmvr, mc.expand, mc.put, mc.finals,
             mc.writeback  its phases, in `mc`
             mc.download   the downloads of `mc.dmvr` and `mc.finals`: each
                           waits for the card
-            mc.host       the host C MC (device MC off)
+            mc.host       the host C MC (device MC off), `row` where it
+                          runs one CTU row band
             mc.row_needs  the reference rows each CTU row's motion reaches,
-                          before the row bands (outside `mc`)
+                          before the host MC's row bands
   pixels    pixels.queued from submission to start (see above)
             recon         the C recon (`native/recon.py`: a job's CTUs, or
                           their residuals where the add is deferred)

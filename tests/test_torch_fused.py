@@ -1,11 +1,12 @@
 """The port's fused chain against the JAX package's `_chain`, exactly.
 
 JAX's `fused_device._chain` is wrapped to record every (meta, arrays,
-output) of a JAX device_pipeline decode; the same numpy arrays then go
-through the port's `to_device(meta, ..., "cpu")` and `chain`, and each
-output plane must be equal.  The streams are those of tests/test_device_filters.py's
-test_fused_chain_formats (FORMATS: slice types, bit depths, chroma formats
-and CTU sizes, each with SAO, ALF, CC-ALF and LMCS on).  This file takes
+output) of a JAX device_pipeline decode; the same numpy arrays, in the
+port's form (`port_arrays`), then go through the port's `to_device(...,
+"cpu")` and `chain`, and each output plane must be equal.  The streams are
+those of tests/test_device_filters.py's test_fused_chain_formats
+(FORMATS: slice types, bit depths, chroma formats and CTU sizes, each with
+SAO, ALF, CC-ALF and LMCS on).  This file takes
 the slice-type and bit-depth streams; test_torch_fused_formats.py the
 chroma-format and CTU-size ones, and test_torch_decode.py decodes all of
 them through the port's decoder.
@@ -25,6 +26,7 @@ from ffvvc_tpu.config import DecoderConfig as JaxConfig  # noqa: E402
 from ffvvc_tpu.decoder import VVCDecoder as JaxDecoder  # noqa: E402
 from ffvvc_tpu.ops import fused_device as jfd  # noqa: E402
 from ffvvc_tpu_torch.ops import fused_device as fd  # noqa: E402
+from ffvvc_tpu_torch.ops.sao_device import pack_params  # noqa: E402
 
 TOOLS = dict(sps_sao_enabled_flag=1, sps_alf_enabled_flag=1,
              sps_ccalf_enabled_flag=1, sps_lmcs_enabled_flag=1)
@@ -60,8 +62,8 @@ def record_jax_chain(name, monkeypatch):
 
     def recording(meta, a):
         out = real(meta, a)
-        calls.append((meta, {k: np.asarray(v) for k, v in a.items()},
-                      [np.asarray(o) for o in out]))
+        calls.append((meta, {k: np.array(v) for k, v in a.items()},
+                      [np.array(o) for o in out]))
         return out
     monkeypatch.setattr(jfd, "_chain", recording)
     JaxDecoder(JaxConfig(device_pipeline=True)).decode(stream(name))
@@ -70,11 +72,40 @@ def record_jax_chain(name, monkeypatch):
     return calls
 
 
+# arrays of the JAX chain that no stage of the port's chain reads (its
+# kernels compute the virtual-boundary rows from the row number)
+UNREAD = ("alf0_row", "alf0_vb", "alfc_row", "alfc_vb", "cc_row", "cc_skip")
+# the nine per-CTB SAO arrays of a plane in the JAX chain
+SAO_ROWS = ("typ", "m1", "offs", "kl", "kr", "kt", "kb", "ax", "bx")
+
+
+def port_arrays(m, arrs):
+    """The JAX chain's host arrays in the form `build_params` builds: the
+    unread row tables dropped, the nine SAO arrays of a plane packed into
+    its one table `sao{c}_prm`, the luma ALF set of each 4x4 block reduced
+    to the set of each CTB (`alf0_ctb_set`), uint16 planes as int16."""
+    cs = m["cs"]
+    arrs = {k: v for k, v in arrs.items() if k not in UNREAD}
+    for c in range(3):
+        if f"sao{c}_typ" in arrs:
+            H, W = arrs[f"p{c}"].shape
+            arrs[f"sao{c}_prm"] = pack_params(
+                {k: arrs.pop(f"sao{c}_{k}") for k in SAO_ROWS}, H, W,
+                cs >> (m["vs"] if c else 0), cs >> (m["hs"] if c else 0))
+    if "alf0_set" in arrs:
+        # blocks inherit their CTB's set, so every (cs / 4)-th is the CTB's
+        arrs["alf0_ctb_set"] = arrs.pop("alf0_set")[::cs // 4, ::cs // 4]
+    return {k: v.view(np.int16) if v.dtype == np.uint16 else v
+            for k, v in arrs.items()}
+
+
 def check_chain_matches_jax(name, monkeypatch):
-    """Every recorded JAX chain call, replayed through the port's
-    `to_device(meta, ..., "cpu")` and `chain`, gives equal planes."""
+    """Every recorded JAX chain call, in the port's form and replayed
+    through the port's `to_device(..., "cpu")` and `chain`, gives equal
+    planes."""
     for meta, arrs, want in record_jax_chain(name, monkeypatch):
-        got = fd.chain(meta, fd.to_device(meta, arrs, "cpu"))
+        m = dict(meta)
+        got = fd.chain(m, fd.to_device(port_arrays(m, arrs), "cpu"))
         assert len(got) == len(want)
         for c, (g, w) in enumerate(zip(got, want)):
             assert np.array_equal(g.numpy().astype(np.int32),

@@ -13,8 +13,14 @@ arrays, through:
     which run the plain versions on CPU tensors.
 The plain PyTorch stages of the chain — deblocking (`luma_math`,
 `chroma_math`) and the ALF classification — are held against JAX's too.
-Every comparison is integer equality (tolerance 0).
+Every comparison is integer equality (tolerance 0).  Last, the launch rule
+of the five hand-kernel wrappers (`ops/device.py`) on a device that is
+neither the CPU nor CUDA, and the counters every device module keeps.
 """
+import contextlib
+import gc
+import weakref
+
 import numpy as np
 import pytest
 import torch
@@ -26,10 +32,11 @@ from ffvvc_tpu.ops import deblock_device as jdb
 from ffvvc_tpu.ops import fused_device as jfd
 from ffvvc_tpu.ops import sao_device as jsao
 from ffvvc_tpu_torch.ops import alf_device, deblock_device, fused_device
-from ffvvc_tpu_torch.ops import sao_device
+from ffvvc_tpu_torch.ops import (device, intra_device, itx, lmcs_device,
+                                 mc_device, sao_device)
 from ffvvc_tpu_torch.ops.kernel_inputs import (alf_chroma_inputs,
                                                alf_luma_inputs, cc_inputs,
-                                               sao_inputs)
+                                               put_inputs, sao_inputs)
 
 
 def px(a, cs_v, cs_h, H, W):
@@ -348,3 +355,131 @@ def test_alf_classify_matches_jax(bd, cs, H, W, binary, seed, monkeypatch):
     same(got[1], want[1])
     if binary:
         assert max(biggest) >= 1 << 32, "no product past 32 bits"
+
+
+# ---- the launch rule and the counters (ops/device.py) -----------------------
+
+def _meta_calls():
+    """Each hand-kernel wrapper's smallest call on "meta" tensors, with the
+    name of its plain twin."""
+    def z(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device="meta")
+    i16, i32 = torch.int16, torch.int32
+    planes, buckets = put_inputs(np.random.default_rng(2), 32, 64, 10,
+                                 blocks=2)
+    table, _ = mc_device.put_table_of(buckets[:3])
+    return {
+        "sao_apply": (sao_device, "sao_apply_ref",
+                      lambda: sao_device.sao_apply(
+                          [z((16, 16), i16)], [z((11, 1, 1), i32)],
+                          [(16, 16)], 3, 255)),
+        "alf_filter_luma": (alf_device, "alf_filter_luma_ref",
+                            lambda: alf_device.alf_filter_luma(
+                                z((32, 32), i16), z((8, 8), i32),
+                                z((8, 8), i32), z((1, 1), i32),
+                                z((1, 25, 12), i32), z((1, 25, 12), i32), 32,
+                                255, edges=z((1, 1), i32))),
+        "alf_filter_chroma": (alf_device, "alf_filter_chroma_ref",
+                              lambda: alf_device.alf_filter_chroma(
+                                  [z((16, 16), i16)], [z((1, 1), i32)],
+                                  [z((1, 12), i32)], [z((1, 12), i32)], 16,
+                                  16, 255)),
+        "cc_filter": (alf_device, "cc_filter_ref",
+                      lambda: alf_device.cc_filter(
+                          [z((16, 16), i16)], z((32, 32), i16),
+                          [z((1, 1), i32)], [z((1, 7), i32)], 16, 16, 1, 1,
+                          128, 255)),
+        "put_table": (mc_device, "put_table_ref",
+                      lambda: mc_device.put_table(
+                          [z(p.shape, i16) for p in planes], table, 10)),
+    }
+
+
+@pytest.mark.parametrize("name", ["sao_apply", "alf_filter_luma",
+                                  "alf_filter_chroma", "cc_filter",
+                                  "put_table"])
+def test_wrapper_on_another_device_raises_before_anything_runs(
+        name, monkeypatch):
+    """Tensors on a device that is neither the CPU nor CUDA: the wrapper
+    raises ValueError before its twin runs, a byte is counted or a launch
+    is counted."""
+    mod, twin, call = _meta_calls()[name]
+    fn = getattr(mod, name)
+
+    def ran(*a, **k):
+        raise AssertionError(f"{twin} ran")
+    monkeypatch.setattr(mod, twin, ran)
+    before = (fn.launches, fn.edge_launches, dict(fn.launches_by_device),
+              mc_device.stats["up_bytes"])
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        call()
+    assert (fn.launches, fn.edge_launches, dict(fn.launches_by_device),
+            mc_device.stats["up_bytes"]) == before
+
+
+def test_put_table_keeps_its_table_alive_through_the_launch(monkeypatch):
+    """The packed table the put kernel reads is still alive when the
+    kernel's launcher is called, so that no other allocation can take its
+    memory before the launch is enqueued.  The call takes the card's path
+    on "meta" tensors, with the library's launcher a spy that collects
+    garbage and then looks at the table through a weak reference."""
+    planes, buckets = put_inputs(np.random.default_rng(2), 32, 64, 10,
+                                 blocks=2)
+    table, _ = mc_device.put_table_of(buckets[:3])
+    meta = torch.device("meta")
+    sent, alive = [], []
+    upload = mc_device.upload
+
+    def spy_upload(a, dev, counters):
+        t = upload(a, dev, counters)
+        sent.append(weakref.ref(t))
+        return t
+
+    class Lib:
+        def ffvvc_mc_put(self, *args):
+            gc.collect()
+            alive.append([r() is not None for r in sent])
+            return 0
+    fn = mc_device.put_table
+    for k in ("launches", "edge_launches"):
+        monkeypatch.setattr(fn, k, 0)
+    monkeypatch.setattr(fn, "launches_by_device", {})
+    for k in ("up_bytes", "launches"):
+        monkeypatch.setitem(mc_device.stats, k, 0)
+    monkeypatch.setattr(mc_device, "kernel_device", lambda *a: meta)
+    monkeypatch.setattr(mc_device, "upload", spy_upload)
+    monkeypatch.setattr(device._build, "lib", lambda: Lib())
+    monkeypatch.setattr(device, "stream_of", lambda dev: 0)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    out = fn([torch.from_numpy(p).to(meta) for p in planes], table, 10)
+    assert alive == [[True]]
+    assert out.shape == (table.n_out,) and fn.launches == 1
+
+
+# every module's counters: reset_stats sets each declared key back to its
+# start value
+COUNTED = {"sao": sao_device, "alf": alf_device, "deblock": deblock_device,
+           "lmcs": lmcs_device, "fused": fused_device, "mc": mc_device,
+           "itx": itx, "intra": intra_device}
+
+
+@pytest.mark.parametrize("name", sorted(COUNTED))
+def test_reset_stats_zeroes_every_declared_key(name):
+    stats = COUNTED[name].stats
+    keys = set(stats)
+    assert {"up_bytes", "down_bytes"} <= keys
+    for k, v in stats.items():
+        stats[k] = [7] * len(v) if isinstance(v, list) else 7
+    COUNTED[name].reset_stats()
+    assert set(stats) == keys
+    for k, v in stats.items():
+        assert v == ([0] * len(v) if isinstance(v, list) else 0), k
+    # the start values are not shared with the counters: a second round
+    # still starts from zero
+    for v in stats.values():
+        if isinstance(v, list):
+            v[0] += 1
+    COUNTED[name].reset_stats()
+    assert all(not any(v) if isinstance(v, list) else v == 0
+               for v in stats.values())

@@ -8,8 +8,9 @@ bilinear prefetch, boxed and wrapped puts and the NumPy host half).
 
 Decode level: `DecoderConfig(device="cpu", device_mc=True)` of the port
 against the bytes of ffvvc_tpu's host decode on every stream of
-tests/test_device_mc.py, the row-band form under row_progress, and
-device_mc beside the fused chain and beside the per-stage filters.  The port
+tests/test_device_mc.py, one call per inter frame under row_progress with
+the references in flight, and device_mc beside the fused chain and beside
+the per-stage filters.  The port
 gets bytes, never an object of the reference.
 
 Every comparison is integer equality (tolerance 0).
@@ -28,7 +29,7 @@ from ffvvc_tpu.config import DecoderConfig as JaxConfig
 from ffvvc_tpu.decoder import VVCDecoder as JaxDecoder
 from ffvvc_tpu.ops import inter_device as jinter
 from ffvvc_tpu.ops import mc_device as jmc
-from ffvvc_tpu_torch import DecoderConfig, VVCDecoder
+from ffvvc_tpu_torch import DecoderConfig, VVCDecoder, trace
 from ffvvc_tpu_torch import decoder as pdecoder
 from ffvvc_tpu_torch.ops import fused_device as fd
 from ffvvc_tpu_torch.ops import inter_device, mc_device
@@ -505,45 +506,64 @@ class _LatePixels(concurrent.futures.ThreadPoolExecutor):
         return super().submit(late)
 
 
-def test_row_progress_with_device_mc(monkeypatch):
+def late_decode(s, **kw):
+    """The port's device_mc decode with every pixel job started late, so
+    that the references are still being filtered when the next frame's MC
+    runs, whatever the host's load (with the pixel thread on time a busy
+    host may finish them first): its frames."""
+    dec = VVCDecoder(DecoderConfig(device="cpu", device_mc=True, **kw))
+    dec._pix_exec = _LatePixels(0.2)
+    try:
+        return dec.decode(s)
+    finally:
+        dec._pix_exec.shutdown()
+
+
+def yuv(frames):
+    return b"".join(f.to_yuv_bytes() for f in frames)
+
+
+@pytest.mark.parametrize("filters", [{}, dict(device_pipeline=True)],
+                         ids=["host", "fused"])
+def test_row_progress_with_device_mc(filters, monkeypatch):
     """Twin of tests/test_pipeline.py::test_row_progress_with_device_mc:
-    the consumer's MC waits per row and each row band is one
-    frame_device_mc call; the bytes equal the plain decode's."""
+    under row_progress, with the references in flight, device MC waits for
+    each reference as a whole (`wait.refs`, no row wait) and makes one
+    frame_device_mc call per inter frame, whether the host filters publish
+    rows or the fused chain filters; the bytes equal the plain decode's and
+    the host decode's."""
     s = forge_hier_stream(seed=1, width=192, height=160, qp=32,
                           bit_depth=10, ngops=2, deblock=True,
                           sps_sao_enabled_flag=1, sps_alf_enabled_flag=1,
                           sps_temporal_mvp_enabled_flag=1,
                           sps_dmvr_enabled_flag=1, sps_bdof_enabled_flag=1)
-    log = {"waits": 0, "mc_calls": 0}
+    log = {"row_waits": 0, "mc": []}
     orig_wait = pdecoder.DecodedFrame.wait_rows
     orig_mc = mc_device.frame_device_mc
 
     def spy_wait(self, y):
-        log["waits"] += 1
+        log["row_waits"] += 1
         return orig_wait(self, y)
 
     def spy_mc(jobs, sps, bd, device="cuda", mesh=None):
-        log["mc_calls"] += 1
+        log["mc"].append(id(jobs[0][0].fb))
         assert device == "cpu" and mesh is None
         return orig_mc(jobs, sps, bd, device=device, mesh=mesh)
 
     monkeypatch.setattr(pdecoder.DecodedFrame, "wait_rows", spy_wait)
     monkeypatch.setattr(mc_device, "frame_device_mc", spy_mc)
-    # every pixel job starts late, so that the references are still being
-    # filtered when the next frame's MC runs, whatever the host's load
-    # (with the pixel thread on time a busy host may finish them first)
-    dec = VVCDecoder(DecoderConfig(device="cpu", device_mc=True))
-    dec._pix_exec = _LatePixels(0.2)
-    try:
-        a = b"".join(f.to_yuv_bytes() for f in dec.decode(s))
-    finally:
-        dec._pix_exec.shutdown()
+    trace.clear()
+    frames = late_decode(s, profile=True, **filters)
+    spans = trace.spans()
+    trace.clear()
     monkeypatch.undo()
+    a = yuv(frames)
     assert a == port_yuv(s, row_progress=False, pipeline_frames=False)
     assert a == host_yuv(s)
-    # per-row device MC engaged: more MC calls than frames, waits observed
-    assert log["mc_calls"] >= 4, log
-    assert log["waits"] >= 1, log
+    # one call per inter frame (every frame but the IDR), after whole waits
+    assert len(log["mc"]) == len(set(log["mc"])) == len(frames) - 1, log
+    assert log["row_waits"] == 0, log
+    assert any(sp.name == "wait.refs" for sp in spans)
 
 
 @pytest.mark.parametrize("slice_type", [2, 0])
@@ -567,20 +587,22 @@ def test_device_mc_with_the_device_filters(slice_type, path, monkeypatch):
 
 
 def test_whole_frame_form_with_the_fused_chain():
-    """With row_progress off an inter frame is one frame_device_mc call
-    (with it on, the row-band form runs whenever a reference's pixel stages
-    are still in flight, whatever filters them), and the fused chain
-    filters the same frames."""
+    """Under the benchmark's condition (row_progress on, the references
+    still being filtered when the next frame's MC runs) an inter frame is
+    one frame_device_mc call, and the fused chain filters the same
+    frames."""
     s = forge_hier_stream(seed=1, width=192, height=160, qp=32, bit_depth=10,
                           ngops=1, deblock=True, sps_sao_enabled_flag=1,
                           sps_alf_enabled_flag=1,
                           sps_temporal_mvp_enabled_flag=1,
                           sps_dmvr_enabled_flag=1, sps_bdof_enabled_flag=1)
     fd.reset_stats()
-    stats = check_device_mc(s, device_pipeline=True, row_progress=False)
-    n_frames = len(JaxDecoder(JaxConfig(backend="golden")).decode(s))
-    assert stats["calls"] == n_frames - 1          # every frame but the IDR
-    assert fd.stats["frames"] == n_frames
+    mc_device.reset_stats()
+    frames = late_decode(s, device_pipeline=True)
+    assert yuv(frames) == host_yuv(s)
+    stats = dict(mc_device.stats)
+    assert stats["calls"] == len(frames) - 1       # every frame but the IDR
+    assert fd.stats["frames"] == len(frames)
     assert all(n > 0 for n in stats["put_class"]), stats
     assert stats["up_bytes"] > 0 and stats["down_bytes"] > 0
 
@@ -619,11 +641,12 @@ def test_put_buckets_count_the_table_groups(name, monkeypatch):
     monkeypatch.setattr(mc_device, "put_table_of", spy)
     s = forge_inter_stream(deblock=True, **INTER_STREAMS[name]) \
         if name in INTER_STREAMS else forge_hier_stream(**HIER_STREAMS[name])
+    launches = mc_device.put_table.launches
     stats = check_device_mc(s, pipeline_frames=False)
     assert seen and all(a == b and c == d for a, b, c, d in seen), seen
     assert stats["put_buckets"] == sum(a for a, _, _, _ in seen)
     assert stats["put_blocks"] == sum(c for _, _, c, _ in seen)
-    assert stats["put_kernel_launches"] == 0
+    assert mc_device.put_table.launches == launches
     assert len(seen) <= stats["calls"]
 
 

@@ -46,7 +46,7 @@ from ffvvc_tpu_torch.ops.kernel_inputs import (alf_chroma_inputs,
                                                alf_luma_inputs, cc_inputs,
                                                edge_words, sao_inputs,
                                                sao_restore_inputs)
-from ffvvc_tpu_torch.ops.sao_device import Slab
+from ffvvc_tpu_torch.ops.device import Slab, as_wire
 from ffvvc_tpu_torch.parallel import filters as PF
 from ffvvc_tpu_torch.parallel.mesh import (cut_rows, exchange_row_halo,
                                            join_rows, make_mesh_exact)
@@ -244,7 +244,7 @@ def test_sao_sharded_matches_single_device(seed, ntiles, t):
     two tiles)."""
     sps, pps, tabs, fb = _fake_ctx(seed, W=96, H=64, ntiles=ntiles)
     cuts = PF.frame_cuts(64, 32, t, 1, 3)
-    planes = [[_slabs(sao_device.as_wire(fb.planes[c]), t, cuts[c].hs)
+    planes = [[_slabs(as_wire(fb.planes[c]), t, cuts[c].hs)
                for c in range(3)]]
     e = {"sps": sps, "pps": pps, "tabs": tabs, "fb": fb}
     (got,) = PF.sao_batch_sharded(planes, [PF._sao_params(e, 3)],
@@ -294,7 +294,7 @@ def test_alf_cc_sharded_match_single_device(name, t, monkeypatch):
         assert a.clamped == (name == "across_off")
         H, Hc = fb.planes[0].shape[0], fb.planes[1].shape[0]
         cuts = PF.frame_cuts(H, Hc, t, 1, 3)
-        planes = [[_slabs(sao_device.as_wire(fb.planes[c]), t, cuts[c].hs)
+        planes = [[_slabs(as_wire(fb.planes[c]), t, cuts[c].hs)
                    for c in range(3)]]
         cs, bd = sps.ctb_size_y, sps.bit_depth
         alf = PF.alf_batch_sharded(planes, [a], cuts, cs, bd, 1, 1)

@@ -37,6 +37,7 @@ from ffvvc_tpu.parallel.filters import \
     make_mesh_exact as jax_make_mesh_exact  # noqa: E402
 from ffvvc_tpu_torch import DecoderConfig, VVCDecoder, pipeline  # noqa: E402
 from ffvvc_tpu_torch.ops import alf_device, mc_device, sao_device  # noqa: E402
+from ffvvc_tpu_torch.ops.device import count_launch, counted  # noqa: E402
 from ffvvc_tpu_torch.parallel.mesh import make_mesh_exact  # noqa: E402
 
 SHAPES = [(1, 1), (1, 2), (2, 1), (1, 3), (2, 2), (1, 4), (4, 1), (2, 3),
@@ -230,16 +231,18 @@ def test_plain_version_counts_no_launch(name):
 
 
 def test_launches_counted_per_device():
-    """count_launch adds one to the total and one to the card's entry."""
+    """count_launch adds one to the total, one to the card's entry and,
+    with edge words, one to `edge_launches`."""
+    @counted
     def wrapper():
         pass
-    wrapper.launches, wrapper.launches_by_device = 0, {}
-    for k in (0, 1, 1, 3):
-        sao_device.count_launch(wrapper, torch.device("cuda", k))
-    assert wrapper.launches == 4
+    for k, edges in ((0, False), (1, True), (1, False), (3, False)):
+        count_launch(wrapper, torch.device("cuda", k), edges)
+    assert (wrapper.launches, wrapper.edge_launches) == (4, 1)
     assert wrapper.launches_by_device == {0: 1, 1: 2, 3: 1}
     for fn in (sao_device.sao_apply, alf_device.alf_filter_luma,
-               alf_device.alf_filter_chroma, alf_device.cc_filter):
+               alf_device.alf_filter_chroma, alf_device.cc_filter,
+               mc_device.put_table):
         assert isinstance(fn.launches_by_device, dict)
 
 

@@ -37,6 +37,7 @@ from ffvvc_tpu.ops import sao_device as jsao
 from ffvvc_tpu.sao import SaoFilter as JaxSaoFilter
 from ffvvc_tpu_torch import DecoderConfig, VVCDecoder
 from ffvvc_tpu_torch.ops import alf_device, sao_device
+from ffvvc_tpu_torch.ops.device import as_wire
 from ffvvc_tpu_torch.ops import fused_device as fd
 from ffvvc_tpu_torch.ops.kernel_inputs import edge_words
 
@@ -104,7 +105,7 @@ def test_sao_restore_twin_matches_jax(seed, bd, size):
             np.pad(plane, 1, mode="edge").astype(np.int32), typ, m1, offs,
             keep, bd - 5, (1 << bd) - 1))
         cs = sps.ctb_size_y
-        args = ([torch.from_numpy(sao_device.as_wire(plane))],
+        args = ([torch.from_numpy(as_wire(plane))],
                 [torch.from_numpy(tables[c])],
                 [(cs >> sps.vshift[c], cs >> sps.hshift[c])], bd - 5,
                 (1 << bd) - 1)
@@ -202,7 +203,7 @@ def test_alf_edge_twins_match_jax(kw, monkeypatch):
         assert (words[:, 1:] & alf_device.EDGE_LEFT).any(), \
             "no clamped edge inside the picture"
         edges = t(words)
-        pre = [t(sao_device.as_wire(p)) for p in fb.planes]
+        pre = [t(as_wire(p)) for p in fb.planes]
         # classification
         ci, ti = _golden_classes(ras, np.asarray(fb.planes[0]), words, cs)
         got_ci, got_ti = fd.alf_classify_ctbs(pre[0], edges, cs, bd)

@@ -41,15 +41,16 @@ from ffvvc_tpu.decoder import VVCDecoder as JaxDecoder  # noqa: E402
 from ffvvc_tpu_torch import (DecoderConfig, VVCDecoder, threads,  # noqa: E402
                              trace)
 from ffvvc_tpu_torch.ops import (alf_device, deblock_device,  # noqa: E402
-                                 fused_device, lmcs_device, sao_device)
+                                 device, fused_device, lmcs_device,
+                                 sao_device)
 
 SIZE = (416, 240)
 SEEDS = (9, 11)
 CELL = cells.cell("ai1080.tiles")
 STAGES = {"lmcs": lmcs_device, "deblock": deblock_device, "sao": sao_device,
           "alf": alf_device}
-# the copies every stage makes, as `sao_device` defines them
-UPLOAD, DOWNLOAD = sao_device.upload, sao_device.download
+# the copies every stage makes, as `ops/device.py` defines them
+UPLOAD, DOWNLOAD = device.upload, device.download
 
 
 def config(**kw):
@@ -200,12 +201,14 @@ def test_counters_count_the_bytes_moved(stage, decoded):
 
 
 def test_reset_zeroes_the_counters():
-    for m in STAGES.values():
-        m.stats.update(frames=1, up_bytes=2, down_bytes=3)
+    """fused_device.reset_stats zeroes every declared key of its own
+    counters and of the four stage modules'."""
+    for m in (*STAGES.values(), fused_device):
+        m.stats.update(dict.fromkeys(m.stats, 1))
     fused_device.reset_stats()
-    for m in STAGES.values():
-        assert (m.stats["frames"], m.stats["up_bytes"],
-                m.stats["down_bytes"]) == (0, 0, 0)
+    for m in (*STAGES.values(), fused_device):
+        assert {"frames", "up_bytes", "down_bytes"} <= m.stats.keys()
+        assert not any(m.stats.values()), m.stats
 
 
 def _no_sao_restore(monkeypatch):

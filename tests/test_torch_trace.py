@@ -158,9 +158,11 @@ def test_waits_hold_little_cpu(profiled):
 
 
 def test_mc_phases_nest_in_mc(profiled):
+    """One `mc` span per inter frame, though every reference was still in
+    flight when its MC ran, and in each span every phase once."""
     _, spans, _ = profiled
     calls = [s for s in spans if s.name == "mc"]
-    assert calls and {s.poc for s in calls} == {1, 2}
+    assert sorted((s.poc, s.row) for s in calls) == [(1, None), (2, None)]
     inner = [s for s in spans
              if s.name in MC_PHASES or s.name == "mc.download"]
     for s in inner:
