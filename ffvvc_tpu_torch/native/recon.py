@@ -108,6 +108,12 @@ def load_lib():
                                    ctypes.POINTER(_InterParams), _I,
                                    _P, _P, _P, _P, _P, _I, _P, _I, _P]
     lib.inter_ctus_dev.restype = _I
+    # device MC's walk of the descriptors and its writeback (vvc_inter.c)
+    lib.mc_walk.argtypes = [_I] + [_P] * 4 + [_I, _P] + [_I] * 6 + \
+        [_P, _P, _I, _P, _P, _P, _I, _P, _I, _P, _I, _P]
+    lib.mc_walk.restype = _I
+    lib.mc_writeback.argtypes = [_P, _P, _I, _P, _P, _P]
+    lib.mc_writeback.restype = _I
     # guard the ctypes struct mirrors against C layout drift
     assert lib.vvcr_sizeof_recon_params() == ctypes.sizeof(_ReconParams), \
         (lib.vvcr_sizeof_recon_params(), ctypes.sizeof(_ReconParams))

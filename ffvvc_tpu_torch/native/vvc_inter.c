@@ -11,6 +11,7 @@
  * re-expressed from our own Python model, not copied.
  */
 #include <stdint.h>
+#include <stdlib.h>
 #include <string.h>
 
 #include "vvc_cabac.h"
@@ -1031,5 +1032,607 @@ int inter_ctus_dev(const ReconParams *rp, const InterParams *ip, int n,
         }
     }
     *n_desc = nd;
+    return 0;
+}
+
+/* ---- device-MC walk (ops/mc_device.py frame_device_mc) ------------------ */
+
+/* mc_walk expands the descriptors of one frame_device_mc call (several
+ * jobs' inter_ctus_dev arrays, each row tagged with its job) with the
+ * arithmetic of pred_regular_blk, pred_affine_blk and pred_gpm_blk, each
+ * prediction becoming a put row instead of a filtered block:
+ *
+ *   jobs [rows][WJ_COLS] (ops/mc_device.py PutTable): x, y, frac_x |
+ *     frac_y << 8, plane | luma << 16 | fclass << 17 | hf << 19 | vf << 21
+ *     | boxed << 23, wrap, box x0 | x1 << 16, box y0 | y1 << 16 (clipped
+ *     into the plane), the offset of the block's outputs.  Rows sharing
+ *     (w, h, flags, wrap) form a group; groups are ordered by (w, h), then
+ *     by first sight, so each size's rows and outputs lie together.
+ *   groups [G][5]: w, h, flags, wrap, rows, in that order; runs [R][4]: w,
+ *     h, first row, rows of each size.
+ *   entries [E][WE_COLS], one a finals block: tag, component, x, y, w, h,
+ *     kind (WK_*), LMCS flag, the put row of each hypothesis (-1: none),
+ *     then five parameters: the weights (denom, w0, w1, o0, o1), BDOF's two
+ *     ring rows, or GPM's weight matrix, offsets x and y, and mirror.
+ *   prof [P][WP_COLS]: PROF's put row, ring row, dmx[16], dmy[16].
+ *
+ * DMVR's refined MVs (mv0 x, y, mv1 x, y) and BDOF skips come in the
+ * order of the DMVR descriptors' subblocks; they go to the collocated
+ * grids (set_dmvr_info).  lut[tag][list][ref][c] is the put table's plane
+ * index of a reference plane, dims[plane] its (W, H).  Returns 0, or a
+ * WALK_* error. */
+
+enum { WK_UNI, WK_UNI_W, WK_BI, WK_BI_W, WK_GPM, WK_BDOF };
+enum { WJ_COLS = 8, WE_COLS = 15, WP_COLS = 34, WR_COLS = 6 };
+enum { WALK_CAP = 1, WALK_PLANE, WALK_RANGE, WALK_MEM, WALK_REFINED };
+
+typedef struct {
+    const int32_t *lut, *dims;
+    int n_planes;
+    int32_t *rows;           /* walk order: x, y, frac, box x, box y, group */
+    int n, cap;
+    int32_t *grp;            /* first-sight order: w, h, flags, wrap, rows */
+    int ng;
+    uint64_t *hkey;          /* group key -> id, open addressing (0: free) */
+    int32_t *hval;
+    int hbits;
+    int32_t *ents;
+    int ne, cap_e;
+    int32_t *prof;
+    int np, cap_p;
+    int err;
+} Walk;
+
+static uint32_t walk_hash(uint64_t key, int bits)
+{
+    return (uint32_t)((key * 0x9E3779B97F4A7C15ULL) >> (64 - bits));
+}
+
+static int walk_rehash(Walk *W, int bits)
+{
+    size_t m = (size_t)1 << bits, old = W->hkey ? (size_t)1 << W->hbits : 0;
+    uint64_t *key = calloc(m, sizeof *key);
+    int32_t *val = malloc(m * sizeof *val);
+    if (!key || !val) {
+        free(key);
+        free(val);
+        return WALK_MEM;
+    }
+    for (size_t i = 0; i < old; i++)
+        if (W->hkey[i]) {
+            uint32_t j = walk_hash(W->hkey[i], bits);
+            while (key[j])
+                j = (j + 1) & (m - 1);
+            key[j] = W->hkey[i];
+            val[j] = W->hval[i];
+        }
+    free(W->hkey);
+    free(W->hval);
+    W->hkey = key;
+    W->hval = val;
+    W->hbits = bits;
+    return 0;
+}
+
+static int walk_plane(Walk *W, int tag, int lx, int ref, int c)
+{
+    if (ref < 0 || ref >= 16) {
+        W->err = W->err ? W->err : WALK_PLANE;
+        return -1;
+    }
+    return W->lut[((tag * 2 + lx) * 16 + ref) * 3 + c];
+}
+
+/* one put block: its row in walk order, or -1 with W->err set */
+static int walk_put(Walk *W, int plane, int x, int y, int fx, int fy, int w,
+                    int h, int luma, int hf, int wrap, const int *box)
+{
+    if (W->err)
+        return -1;
+    if (plane < 0 || plane >= W->n_planes) {
+        W->err = WALK_PLANE;
+        return -1;
+    }
+    if (w > 255 || h > 255 || wrap < 0 || wrap >= 1 << 24) {
+        W->err = WALK_RANGE;
+        return -1;
+    }
+    if (W->n >= W->cap) {
+        W->err = WALK_CAP;
+        return -1;
+    }
+    uint32_t flags = (uint32_t)plane | (uint32_t)luma << 16 |
+                     (uint32_t)((fx != 0) | (fy != 0) << 1) << 17 |
+                     (uint32_t)hf << 19 | (uint32_t)hf << 21 |
+                     (uint32_t)(box != NULL) << 23;
+    uint64_t key = flags | (uint64_t)w << 24 | (uint64_t)h << 32 |
+                   (uint64_t)wrap << 40;
+    size_t m = (size_t)1 << W->hbits;
+    uint32_t j = walk_hash(key, W->hbits);
+    while (W->hkey[j] && W->hkey[j] != key)
+        j = (j + 1) & (m - 1);
+    int g;
+    if (W->hkey[j]) {
+        g = W->hval[j];
+    } else {
+        g = W->ng++;
+        W->hkey[j] = key;
+        W->hval[j] = g;
+        int32_t *q = W->grp + (long)g * 5;
+        q[0] = w; q[1] = h; q[2] = (int32_t)flags; q[3] = wrap; q[4] = 0;
+        if (2 * (size_t)W->ng >= m &&
+            (W->err = walk_rehash(W, W->hbits + 1)))
+            return -1;
+    }
+    W->grp[(long)g * 5 + 4]++;
+    int32_t *r = W->rows + (long)W->n * WR_COLS;
+    r[0] = x;
+    r[1] = y;
+    r[2] = fx | fy << 8;
+    r[3] = r[4] = 0;
+    if (box) {
+        int pw = W->dims[plane * 2] - 1, ph = W->dims[plane * 2 + 1] - 1;
+        r[3] = iclip(box[0], 0, pw) | iclip(box[1], 0, pw) << 16;
+        r[4] = iclip(box[2], 0, ph) | iclip(box[3], 0, ph) << 16;
+    }
+    r[5] = g;
+    return W->n++;
+}
+
+static int walk_luma(Walk *W, int plane, int x, int y, int mvx, int mvy,
+                     int w, int h, int hf, int wrap, const int *box)
+{
+    return walk_put(W, plane, x + (mvx >> 4), y + (mvy >> 4), mvx & 15,
+                    mvy & 15, w, h, 1, hf, wrap, box);
+}
+
+static int walk_chroma(Walk *W, int plane, int xc, int yc, int mvx, int mvy,
+                       int wc, int hc, int hs, int vs, int wrap,
+                       const int *box)
+{
+    int fx = (mvx & ((1 << (4 + hs)) - 1)) << (1 - hs);
+    int fy = (mvy & ((1 << (4 + vs)) - 1)) << (1 - vs);
+    return walk_put(W, plane, xc + (mvx >> (4 + hs)), yc + (mvy >> (4 + vs)),
+                    fx, fy, wc, hc, 0, 0, wrap >> hs, box);
+}
+
+/* one finals block over n put rows; prm: its five parameters or NULL */
+static void walk_entry(Walk *W, int tag, int c, int x, int y, int w, int h,
+                       int kind, int lm, const int *slots, int n,
+                       const int32_t *prm)
+{
+    if (W->err)
+        return;
+    if (W->ne >= W->cap_e) {
+        W->err = WALK_CAP;
+        return;
+    }
+    int32_t *e = W->ents + (long)W->ne++ * WE_COLS;
+    e[0] = tag; e[1] = c; e[2] = x; e[3] = y; e[4] = w; e[5] = h;
+    e[6] = kind; e[7] = lm;
+    e[8] = slots[0];
+    e[9] = n > 1 ? slots[1] : -1;
+    for (int k = 0; k < 5; k++)
+        e[10 + k] = prm ? prm[k] : 0;
+}
+
+static int walk_kind(int n, int weighted)
+{
+    return n == 1 ? (weighted ? WK_UNI_W : WK_UNI)
+                  : (weighted ? WK_BI_W : WK_BI);
+}
+
+static void walk_regular(Walk *W, const int32_t *d, int nc, int hs, int vs)
+{
+    int x0 = d[0], y0 = d[1], w = d[2], h = d[3], pf = d[4], tag = d[12];
+    int refs[2] = {d[5], d[6]};
+    int mvs[2][2] = {{d[7], d[8]}, {d[9], d[10]}};
+    for (int c = 0; c < nc; c++) {
+        int chs = c ? hs : 0, cvs = c ? vs : 0;
+        int slots[2], n = 0;
+        for (int lx = 0; lx < 2; lx++) {
+            if ((pf == PF_L0 && lx == 1) || (pf == PF_L1 && lx == 0))
+                continue;
+            int k = walk_plane(W, tag, lx, refs[lx], c);
+            slots[n++] = c ?
+                walk_chroma(W, k, x0 >> chs, y0 >> cvs, mvs[lx][0],
+                            mvs[lx][1], w >> chs, h >> cvs, chs, cvs,
+                            d[14], NULL) :
+                walk_luma(W, k, x0, y0, mvs[lx][0], mvs[lx][1], w, h,
+                          d[11], d[14], NULL);
+        }
+        int weighted = d[15] >> c & 1;
+        walk_entry(W, tag, c, x0 >> chs, y0 >> cvs, w >> chs, h >> cvs,
+                   walk_kind(n, weighted), (d[13] & 1) && !c, slots, n,
+                   weighted ? d + 16 + 5 * c : NULL);
+    }
+}
+
+static void walk_gpm(Walk *W, const InterParams *ip, const int32_t *d,
+                     int nc, int hs, int vs)
+{
+    int x0 = d[0], y0 = d[1], w = d[2], h = d[3], tag = d[12];
+    int refs[2] = {d[5], d[6]}, lxs[2] = {d[16], d[17]}, part = d[18];
+    int mvs[2][2] = {{d[7], d[8]}, {d[9], d[10]}};
+    if (part < 0 || part >= 64 || (lxs[0] | lxs[1]) & ~1) {
+        W->err = WALK_RANGE;
+        return;
+    }
+    int angle = ip->gpm_angle_idx[part];
+    int wi = (31 - __builtin_clz((unsigned)w)) - 3;
+    int hi = (31 - __builtin_clz((unsigned)h)) - 3;
+    int32_t prm[5] = {ip->gpm_angle_to_weights[angle],
+                      ip->gpm_off_x[(part * 4 + hi) * 4 + wi],
+                      ip->gpm_off_y[(part * 4 + hi) * 4 + wi],
+                      ip->gpm_angle_to_mirror[angle], 0};
+    for (int c = 0; c < nc; c++) {
+        int chs = c ? hs : 0, cvs = c ? vs : 0;
+        int slots[2];
+        for (int i = 0; i < 2; i++) {
+            int k = walk_plane(W, tag, lxs[i], refs[i], c);
+            slots[i] = c ?
+                walk_chroma(W, k, x0 >> chs, y0 >> cvs, mvs[i][0],
+                            mvs[i][1], w >> chs, h >> cvs, chs, cvs, d[14],
+                            NULL) :
+                walk_luma(W, k, x0, y0, mvs[i][0], mvs[i][1], w, h, 0,
+                          d[14], NULL);
+        }
+        walk_entry(W, tag, c, x0 >> chs, y0 >> cvs, w >> chs, h >> cvs,
+                   WK_GPM, (d[13] & 1) && !c, slots, 2, prm);
+    }
+}
+
+/* affine_sb_params for a block given by position, size and CP count */
+static void walk_sb_params(const InterParams *ip, int x0, int y0, int w,
+                           int h, int num_cp, int lx, SbDeriv *out)
+{
+    int log2_cbw = 31 - __builtin_clz((unsigned)w);
+    int log2_cbh = 31 - __builtin_clz((unsigned)h);
+    long i4 = (long)(y0 >> 2) * ip->w4 + (x0 >> 2);
+    long p4 = (long)ip->h4 * ip->w4;
+    const int32_t *cp = ip->cp_mv + ((long)lx * p4 + i4) * 3 * 2;
+    int D = MAX_CU_DEPTH;
+    out->d_hor_x = (long long)(cp[2] - cp[0]) << (D - log2_cbw);
+    out->d_ver_x = (long long)(cp[3] - cp[1]) << (D - log2_cbw);
+    if (num_cp == 3) {
+        out->d_hor_y = (long long)(cp[4] - cp[0]) << (D - log2_cbh);
+        out->d_ver_y = (long long)(cp[5] - cp[1]) << (D - log2_cbh);
+    } else {
+        out->d_hor_y = -out->d_ver_x;
+        out->d_ver_y = out->d_hor_x;
+    }
+}
+
+static void walk_subblocks(Walk *W, const InterParams *ip,
+                           const int32_t *mmi, const int32_t *d, int nc,
+                           int hs, int vs)
+{
+    int x0 = d[0], y0 = d[1], w = d[2], h = d[3], tag = d[12];
+    int flags2 = d[13], wrap = d[14], wmask = d[15];
+    int affine = (flags2 & 4) != 0, lm = flags2 & 1;
+    int nsbx = d[4] >> 4 & 63, nsby = d[4] >> 10 & 63;
+    int sbw = w / nsbx, sbh = h / nsby;
+    int prof[2] = {flags2 >> 4 & 1, flags2 >> 5 & 1};
+    long p4 = (long)ip->h4 * ip->w4;
+    int32_t dmx[2][16], dmy[2][16];
+    if (affine) {
+        int num_cp = mmi[(long)(y0 >> 2) * ip->w4 + (x0 >> 2)] + 1;
+        for (int lx = 0; lx < 2; lx++)
+            if (prof[lx]) {
+                SbDeriv sb;
+                walk_sb_params(ip, x0, y0, w, h, num_cp, lx, &sb);
+                affine_diff_mvs(&sb, dmx[lx], dmy[lx]);
+            }
+    }
+    for (int sby = 0; sby < nsby; sby++)
+        for (int sbx = 0; sbx < nsbx; sbx++) {
+            int x = x0 + sbx * sbw, y = y0 + sby * sbh;
+            long i4 = (long)(y >> 2) * ip->w4 + (x >> 2);
+            int spf = ip->mvf_pf[i4];
+            int hf = affine ? 2 : ip->mvf_hpel[i4];
+            int lxs[2], slots[2], n = 0;
+            for (int lx = 0; lx < 2; lx++) {
+                if (!(spf & (lx + 1)))
+                    continue;
+                const int32_t *mv = ip->mvf_mv + (lx * p4 + i4) * 2;
+                int k = walk_plane(W, tag, lx, ip->mvf_ref[lx * p4 + i4], 0);
+                int slot = walk_luma(W, k, x, y, mv[0], mv[1], sbw, sbh, hf,
+                                     wrap, NULL);
+                if (affine && prof[lx]) {
+                    /* 6x6 integer-sample ring: an fclass-0 put */
+                    int ring = walk_put(
+                        W, k, x + (mv[0] >> 4) + ((mv[0] & 15) >> 3) - 1,
+                        y + (mv[1] >> 4) + ((mv[1] & 15) >> 3) - 1, 0, 0, 6,
+                        6, 1, 0, wrap, NULL);
+                    if (!W->err && W->np >= W->cap_p)
+                        W->err = WALK_CAP;
+                    if (W->err)
+                        return;
+                    int32_t *p = W->prof + (long)W->np++ * WP_COLS;
+                    p[0] = slot;
+                    p[1] = ring;
+                    memcpy(p + 2, dmx[lx], sizeof dmx[lx]);
+                    memcpy(p + 18, dmy[lx], sizeof dmy[lx]);
+                }
+                lxs[n] = lx;
+                slots[n++] = slot;
+            }
+            if (!n)
+                continue;
+            walk_entry(W, tag, 0, x, y, sbw, sbh, walk_kind(n, wmask & 1),
+                       lm, slots, n, wmask & 1 ? d + 16 : NULL);
+            if (nc == 1 || (affine && ((sby & vs) || (sbx & hs))))
+                continue;
+            /* affine: one chroma block a 2x2 group (4:2:0), its MV the
+             * average of the group's first and last (derive_affine_mvc) */
+            long i4b = affine ? (long)((y + vs * sbh) >> 2) * ip->w4 +
+                                ((x + hs * sbw) >> 2) : i4;
+            int wc = affine ? (sbw << hs) >> hs : sbw >> hs;
+            int hc = affine ? (sbh << vs) >> vs : sbh >> vs;
+            for (int c = 1; c <= 2; c++) {
+                int cs[2];
+                for (int j = 0; j < n; j++) {
+                    int lx = lxs[j];
+                    const int32_t *a = ip->mvf_mv + (lx * p4 + i4) * 2;
+                    const int32_t *b = ip->mvf_mv + (lx * p4 + i4b) * 2;
+                    int mvc[2] = {a[0], a[1]};
+                    if (affine)
+                        for (int k = 0; k < 2; k++) {
+                            long long m = (long long)a[k] + b[k];
+                            mvc[k] = (int)((m + 1 - (m >= 0)) >> 1);
+                        }
+                    int k = walk_plane(W, tag, lx, ip->mvf_ref[lx * p4 + i4],
+                                       c);
+                    cs[j] = walk_chroma(W, k, x >> hs, y >> vs, mvc[0],
+                                        mvc[1], wc, hc, hs, vs, wrap, NULL);
+                }
+                int weighted = wmask >> c & 1;
+                walk_entry(W, tag, c, x >> hs, y >> vs, wc, hc,
+                           walk_kind(n, weighted), 0, cs, n,
+                           weighted ? d + 16 + 5 * c : NULL);
+            }
+        }
+}
+
+static void walk_dmvr_bdof(Walk *W, const InterParams *ip,
+                           const ReconParams *pic, const int32_t *d, int nc,
+                           int hs, int vs, const int32_t *ref_mv,
+                           const int32_t *ref_skip, int n_sub, int *at)
+{
+    int x0 = d[0], y0 = d[1], w = d[2], h = d[3], tag = d[12];
+    int flags2 = d[13], wrap = d[14], hpel = d[11];
+    int dmvr = (flags2 & 64) != 0, bdof = (flags2 & 128) != 0;
+    int nsbx = d[4] >> 4 & 63, nsby = d[4] >> 10 & 63;
+    int sbw = w / nsbx, sbh = h / nsby;
+    int refs[2] = {d[5], d[6]};
+    int orig[2][2] = {{d[7], d[8]}, {d[9], d[10]}};
+    for (int sby = 0; sby < nsby; sby++)
+        for (int sbx = 0; sbx < nsbx; sbx++) {
+            int x = x0 + sbx * sbw, y = y0 + sby * sbh;
+            int mv[2][2], sb_bdof = bdof, box[4];
+            memcpy(mv, orig, sizeof mv);
+            if (dmvr) {
+                if (*at >= n_sub) {
+                    W->err = WALK_REFINED;
+                    return;
+                }
+                MvF f;
+                memset(&f, 0, sizeof f);
+                f.pf = PF_BI;
+                for (int i = 0; i < 2; i++) {
+                    mv[i][0] = f.mv[i][0] = ref_mv[*at * 4 + 2 * i];
+                    mv[i][1] = f.mv[i][1] = ref_mv[*at * 4 + 2 * i + 1];
+                    f.ref[i] = refs[i];
+                }
+                sb_bdof = bdof && !ref_skip[(*at)++];
+                set_dmvr_info(ip, x, y, sbw, sbh, &f);
+            }
+            int slots[2], rings[2];
+            for (int i = 0; i < 2; i++) {
+                int k = walk_plane(W, tag, i, refs[i], 0);
+                int fx = mv[i][0] & 15, fy = mv[i][1] & 15;
+                int xi = x + (mv[i][0] >> 4), yi = y + (mv[i][1] >> 4);
+                if (dmvr)
+                    dmvr_box(pic, x + (orig[i][0] >> 4),
+                             y + (orig[i][1] >> 4), sbw, sbh, 1, box);
+                slots[i] = walk_put(W, k, xi, yi, fx, fy, sbw, sbh, 1, hpel,
+                                    wrap, dmvr ? box : NULL);
+                if (sb_bdof)
+                    rings[i] = walk_put(W, k, xi + (fx >> 3) - 1,
+                                        yi + (fy >> 3) - 1, 0, 0, sbw + 2,
+                                        sbh + 2, 1, 0, wrap,
+                                        dmvr ? box : NULL);
+            }
+            int32_t prm[5] = {0, 0, 0, 0, 0};
+            if (sb_bdof) {
+                prm[0] = rings[0];
+                prm[1] = rings[1];
+            }
+            walk_entry(W, tag, 0, x, y, sbw, sbh, sb_bdof ? WK_BDOF : WK_BI,
+                       flags2 & 1, slots, 2, sb_bdof ? prm : NULL);
+            if (nc == 1)
+                continue;
+            for (int c = 1; c <= 2; c++) {
+                for (int i = 0; i < 2; i++) {
+                    int k = walk_plane(W, tag, i, refs[i], c);
+                    if (dmvr)
+                        dmvr_box(pic, (x >> hs) + (orig[i][0] >> (4 + hs)),
+                                 (y >> vs) + (orig[i][1] >> (4 + vs)),
+                                 sbw >> hs, sbh >> vs, 0, box);
+                    slots[i] = walk_chroma(W, k, x >> hs, y >> vs, mv[i][0],
+                                           mv[i][1], sbw >> hs, sbh >> vs,
+                                           hs, vs, wrap, dmvr ? box : NULL);
+                }
+                walk_entry(W, tag, c, x >> hs, y >> vs, sbw >> hs, sbh >> vs,
+                           WK_BI, 0, slots, 2, NULL);
+            }
+        }
+}
+
+static int cmp_u64(const void *a, const void *b)
+{
+    uint64_t x = *(const uint64_t *)a, y = *(const uint64_t *)b;
+    return x < y ? -1 : x > y;
+}
+
+/* order the groups, place the rows, and renumber what refers to them */
+static int walk_finish(Walk *W, int32_t *jobs, int32_t *groups,
+                       int32_t *runs, int32_t *counts)
+{
+    int ng = W->ng, nr = 0, row = 0;
+    uint64_t *ord = malloc(((size_t)ng + 1) * sizeof *ord);
+    int64_t *off = malloc(((size_t)ng + 1) * sizeof *off);
+    int32_t *next = malloc(((size_t)ng + 1) * sizeof *next);
+    int32_t *perm = malloc(((size_t)W->n + 1) * sizeof *perm);
+    int err = 0;
+    if (!ord || !off || !next || !perm) {
+        err = WALK_MEM;
+        goto out;
+    }
+    for (int g = 0; g < ng; g++)
+        ord[g] = (uint64_t)W->grp[g * 5] << 48 |
+                 (uint64_t)W->grp[g * 5 + 1] << 32 | (uint64_t)g;
+    qsort(ord, (size_t)ng, sizeof *ord, cmp_u64);
+    int64_t at = 0;
+    for (int i = 0; i < ng; i++) {
+        int g = (int)(ord[i] & 0xFFFFFFFFu);
+        const int32_t *q = W->grp + (long)g * 5;
+        memcpy(groups + (long)i * 5, q, 5 * sizeof *q);
+        next[g] = row;
+        off[g] = at;
+        if (nr && runs[(nr - 1) * 4] == q[0] &&
+            runs[(nr - 1) * 4 + 1] == q[1]) {
+            runs[(nr - 1) * 4 + 3] += q[4];
+        } else {
+            int32_t *u = runs + (long)nr++ * 4;
+            u[0] = q[0]; u[1] = q[1]; u[2] = row; u[3] = q[4];
+        }
+        row += q[4];
+        at += (int64_t)q[4] * q[0] * q[1];
+    }
+    if (at > INT32_MAX) {
+        err = WALK_RANGE;
+        goto out;
+    }
+    for (int r = 0; r < W->n; r++) {
+        const int32_t *s = W->rows + (long)r * WR_COLS;
+        const int32_t *q = W->grp + (long)s[5] * 5;
+        int f = next[s[5]]++;
+        int32_t *j = jobs + (long)f * WJ_COLS;
+        j[0] = s[0]; j[1] = s[1]; j[2] = s[2]; j[3] = q[2]; j[4] = q[3];
+        j[5] = s[3]; j[6] = s[4];
+        j[7] = (int32_t)off[s[5]];
+        off[s[5]] += q[0] * q[1];
+        perm[r] = f;
+    }
+    for (int i = 0; i < W->ne; i++) {
+        int32_t *e = W->ents + (long)i * WE_COLS;
+        e[8] = perm[e[8]];
+        if (e[9] >= 0)
+            e[9] = perm[e[9]];
+        if (e[6] == WK_BDOF) {
+            e[10] = perm[e[10]];
+            e[11] = perm[e[11]];
+        }
+    }
+    for (int i = 0; i < W->np; i++) {
+        int32_t *p = W->prof + (long)i * WP_COLS;
+        p[0] = perm[p[0]];
+        p[1] = perm[p[1]];
+    }
+    counts[0] = W->n; counts[1] = ng; counts[2] = nr;
+    counts[3] = W->ne; counts[4] = W->np;
+out:
+    free(ord);
+    free(off);
+    free(next);
+    free(perm);
+    return err;
+}
+
+int mc_walk(int n_desc, const int32_t *desc, const int64_t *ips,
+            const int64_t *mmis, const int32_t *lut, int ntags,
+            const int32_t *dims, int n_planes, int nc, int hs, int vs,
+            int pic_w, int pic_h, const int32_t *ref_mv,
+            const int32_t *ref_skip, int n_sub, int32_t *jobs,
+            int32_t *groups, int32_t *runs, int cap, int32_t *ents,
+            int cap_e, int32_t *prof, int cap_p, int32_t *counts)
+{
+    Walk W;
+    memset(&W, 0, sizeof W);
+    W.lut = lut; W.dims = dims; W.n_planes = n_planes;
+    W.cap = cap; W.ents = ents; W.cap_e = cap_e;
+    W.prof = prof; W.cap_p = cap_p;
+    if (n_planes > 1 << 16)
+        return WALK_RANGE;
+    W.rows = malloc(((size_t)cap + 1) * WR_COLS * sizeof *W.rows);
+    W.grp = malloc(((size_t)cap + 1) * 5 * sizeof *W.grp);
+    int err = W.rows && W.grp ? walk_rehash(&W, 12) : WALK_MEM;
+    ReconParams pic;
+    memset(&pic, 0, sizeof pic);
+    pic.width = pic_w; pic.height = pic_h;
+    pic.hshift1 = hs; pic.vshift1 = vs;
+    int at = 0;
+    for (int i = 0; i < n_desc && !err; i++) {
+        const int32_t *d = desc + (long)i * 31;
+        int tag = d[12], flags2 = d[13];
+        if (tag < 0 || tag >= ntags) {
+            err = WALK_RANGE;
+            break;
+        }
+        const InterParams *ip = (const InterParams *)(intptr_t)ips[tag];
+        if (flags2 & 2)
+            walk_gpm(&W, ip, d, nc, hs, vs);
+        else if (flags2 & 12)
+            walk_subblocks(&W, ip, (const int32_t *)(intptr_t)mmis[tag], d,
+                           nc, hs, vs);
+        else if (flags2 & 192)
+            walk_dmvr_bdof(&W, ip, &pic, d, nc, hs, vs, ref_mv, ref_skip,
+                           n_sub, &at);
+        else
+            walk_regular(&W, d, nc, hs, vs);
+        err = W.err;
+    }
+    if (!err && at != n_sub)
+        err = WALK_REFINED;
+    if (!err)
+        err = walk_finish(&W, jobs, groups, runs, counts);
+    free(W.rows);
+    free(W.grp);
+    free(W.hkey);
+    free(W.hval);
+    return err;
+}
+
+/* Copies the finals' pixels (int16, the entries' blocks one after another
+ * in the order given) into the destination planes: dst[tag][c] (int32,
+ * row stride in samples strides[tag][c]); luma through luts[tag] where an
+ * entry's LMCS flag is set and the tag has a forward-mapping LUT. */
+int mc_writeback(const int16_t *pix, const int32_t *ents, int n,
+                 const int64_t *dst, const int32_t *strides,
+                 const int64_t *luts)
+{
+    long at = 0;
+    for (int i = 0; i < n; i++) {
+        const int32_t *e = ents + (long)i * WE_COLS;
+        int tag = e[0], c = e[1], x = e[2], y = e[3], w = e[4], h = e[5];
+        int32_t *plane = (int32_t *)(intptr_t)dst[tag * 3 + c];
+        long stride = strides[tag * 3 + c];
+        const int32_t *lut = e[7] ? (const int32_t *)(intptr_t)luts[tag]
+                                  : NULL;
+        if (!plane)
+            return WALK_PLANE;
+        for (int yy = 0; yy < h; yy++) {
+            int32_t *row = plane + (long)(y + yy) * stride + x;
+            const int16_t *src = pix + at + (long)yy * w;
+            if (lut)
+                for (int xx = 0; xx < w; xx++)
+                    row[xx] = lut[src[xx]];
+            else
+                for (int xx = 0; xx < w; xx++)
+                    row[xx] = src[xx];
+        }
+        at += (long)w * h;
+    }
     return 0;
 }

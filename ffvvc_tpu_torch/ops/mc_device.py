@@ -13,13 +13,18 @@ kernel here either.
 The decoder-side dispatch covers EVERY block shape of the reference's SIMD
 (vvcdsp_init.c grid): regular blocks (incl. weighted pred / BCW /
 LMCS-forward / wraparound), GPM blends, affine (+PROF gradient refinement)
-and SbTMVP subblock grids — subblock MVs expand from the frame's mvf/cp_mv
-tab grids — and DMVR/BDOF in frame-batched phases: phase A runs every DMVR
-subblock's bilinear prefetch + 25-point SAD refine as batched calls
-(ops/inter_device), then the refined MVs feed box-clamped puts, batched
-per-4x4 BDOF solves and the TMVP col-grid writeback (the reference
-interleaves these per CTU inside the inter task, vvc_inter.c:642-760;
-hoisting the refine to a frame phase is what makes it batchable).
+and SbTMVP subblock grids, and DMVR/BDOF in frame-batched phases: phase A
+runs every DMVR subblock's bilinear prefetch + 25-point SAD refine as
+batched calls (ops/inter_device), then the refined MVs feed box-clamped
+puts, batched per-4x4 BDOF solves and the TMVP col-grid writeback (the
+reference interleaves these per CTU inside the inter task,
+vvc_inter.c:642-760; hoisting the refine to a frame phase is what makes it
+batchable).  Every per-block step on the host is C: one `mc_walk` a call
+(native/vvc_inter.c) expands the descriptors, subblock MVs from the
+frame's mvf/cp_mv grids, into the put rows, the finals entries and PROF's
+rows, and writes the refined MVs to the col grids; one `mc_writeback`
+copies the finals' pixels into the planes.  Python keeps what runs once a
+size or kind: uploads, launches and the download.
 
 The puts of one `frame_device_mc` call go to the device as one table
 (`PutTable`: an int32 row a block, ordered by block size) and run as one
@@ -27,11 +32,11 @@ launch of the hand-written `mc_put_kernel` (csrc/mc.cu) on CUDA tensors
 (`put_table`); on CPU tensors `put_table_ref` groups the rows back into
 buckets and runs `_mc_put_math`, the kernel's plain twin.  Every output
 lands in one int32 buffer, each block size's outputs together, which PROF,
-the BDOF rings and the finals read as [N, h, w] views.
+the BDOF rings and the finals read as [N, h, w] views (`_by_size`).
 
 What stays on the device within one `frame_device_mc` call: each reference
 plane (uploaded once, as 16-bit samples), every put output through PROF
-and the finals; a finals bucket comes down once, as 16-bit pixels.
+and the finals; the finals come down once, as 16-bit pixels.
 Integer width: int32, and int64 where the golden model needs it (GPM and
 the weighted finals).
 
@@ -43,13 +48,16 @@ reads, and the outputs come back into the call's buffer in order
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import itertools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .. import trace
+from ..native import recon as _native
 from .device import (Counters, as_wire, counted, download, kernel_device,
                      one_device, run, upload)
 from .inter_device import _bdof, _dmvr_refine
@@ -62,11 +70,12 @@ I32, I64 = torch.int32, torch.int64
 # kernel's own launches are `put_table.launches`.  `put_buckets` counts the
 # distinct put groups (reference plane, size, filter class, wrap, box),
 # whichever way they ran; `put_class` the put buckets by class (copy, h, v,
-# hv).  Where the time goes is in the spans of `frame_device_mc` (trace.py:
-# `mc` and its phases `mc.collect` ... `mc.writeback`).
-stats = Counters("calls", "descriptors", "put_buckets", "put_blocks",
-                 "bilin_buckets", "dmvr_subblocks", "bdof_blocks",
-                 "prof_blocks", "gpm_blocks", "weighted_blocks",
+# hv).  `walked` counts the descriptors `mc_walk` expanded (all of them).
+# Where the time goes is in the spans of `frame_device_mc` (trace.py: `mc`
+# and its phases `mc.collect` ... `mc.writeback`).
+stats = Counters("calls", "descriptors", "walked", "put_buckets",
+                 "put_blocks", "bilin_buckets", "dmvr_subblocks",
+                 "bdof_blocks", "prof_blocks", "gpm_blocks", "weighted_blocks",
                  "finals_buckets", "launches", "up_bytes", "down_bytes",
                  put_class=[0, 0, 0, 0])
 reset_stats = stats.reset
@@ -163,34 +172,6 @@ def _prof_apply_batch(val, ring, dmx, dmy, bd: int):
     return padded[:, 1:5, 1:5] + di
 
 
-def _affine_diff_mvs(cp, num_cp, w, h):
-    """Per-4x4 PROF diff-MV grids from the stored control-point MVs —
-    the numpy twin of native affine_sb_params + affine_diff_mvs
-    (mvs.py _init_subblock_params / _derive_subblock_diff_mvs)."""
-    D = 7                                   # MAX_CU_DEPTH
-    lw, lh = w.bit_length() - 1, h.bit_length() - 1
-    cp = np.asarray(cp, np.int64)
-    d_hor_x = (cp[1, 0] - cp[0, 0]) << (D - lw)
-    d_ver_x = (cp[1, 1] - cp[0, 1]) << (D - lw)
-    if num_cp == 3:
-        d_hor_y = (cp[2, 0] - cp[0, 0]) << (D - lh)
-        d_ver_y = (cp[2, 1] - cp[0, 1]) << (D - lh)
-    else:
-        d_hor_y = -d_ver_x
-        d_ver_y = d_hor_x
-    lim = 1 << 5
-    xs = np.arange(4, dtype=np.int64)[None, :]
-    ys = np.arange(4, dtype=np.int64)[:, None]
-    d0 = xs * (d_hor_x << 2) + ys * (d_hor_y << 2) - \
-        6 * (d_hor_x + d_hor_y)
-    d1 = xs * (d_ver_x << 2) + ys * (d_ver_y << 2) - \
-        6 * (d_ver_x + d_ver_y)
-    d0 = (d0 + 128 - (d0 >= 0)) >> 8        # round_mv(d, 0, 8)
-    d1 = (d1 + 128 - (d1 >= 0)) >> 8
-    return (np.clip(d0, -lim + 1, lim - 1).astype(np.int32),
-            np.clip(d1, -lim + 1, lim - 1).astype(np.int32))
-
-
 def _dmvr_bilin_batch(ref, xs, ys, fx, fy, pw: int, ph: int, bd: int,
                       mclass: int, wrap: int):
     """Batched DMVR bilinear prefetch to the 10-bit domain: xs/ys [B]
@@ -240,16 +221,6 @@ def _bdof_full_batch(s0, s1, r0, r1, w: int, h: int, bd: int):
     return _bdof(r0, r1, w, h, bd)
 
 
-def _dmvr_box(x_sb, y_sb, w, h, is_luma, pw, ph):
-    """Native dmvr_box: the inclusive prefetch-window clamp bounds."""
-    eb, ea = (3, 4) if is_luma else (1, 2)
-    sx = min(max(x_sb - eb, 0), pw - 1)
-    sy = min(max(y_sb - eb, 0), ph - 1)
-    wdt = max(min(pw, x_sb + w + ea) - sx, 1)
-    hgt = max(min(ph, y_sb + h + ea) - sy, 1)
-    return (sx, sx + wdt - 1, sy, sy + hgt - 1)
-
-
 @functools.lru_cache()
 def _dmvr_filters():
     from . import data as D
@@ -267,36 +238,25 @@ def _mc_gpm_batch(s0, s1, wgt, bd: int):
 
 
 @functools.lru_cache()
-def _gpm_tables():
+def _gpm_weight_planes():
     from . import data as D
-    t = D.tables()
-    return (t["gpm_angle_idx"], t["gpm_angle_to_weights_idx"],
-            t["gpm_weights_offset_x"], t["gpm_weights_offset_y"],
-            t["gpm_angle_to_mirror"],
-            np.asarray(t["gpm_weights"]).reshape(-1, 112, 112))
+    return np.asarray(D.tables()["gpm_weights"]).reshape(-1, 112, 112)
 
 
-def _gpm_weight_block(part, w, h, wl, hl, hs, vs):
-    """Host slice of the GPM weight plane for one block: [h, w] int32
-    (wl/hl: LUMA block dims for the offset lookup; hs/vs: plane shifts)."""
-    angle_idx, a2w, offx, offy, a2m, wmats = _gpm_tables()
-    ai = int(angle_idx[part])
-    wmat = wmats[int(a2w[ai])]
-    wi = (wl.bit_length() - 1) - 3
-    hi = (hl.bit_length() - 1) - 3
-    off_x = int(offx[part][hi][wi])
-    off_y = int(offy[part][hi][wi])
-    mirror = int(a2m[ai])
-    WS = 112
-    wys = np.arange(h) << vs
-    wxs = np.arange(w) << hs
-    if mirror == 0:
-        rows, cols = off_y + wys, off_x + wxs
-    elif mirror == 1:
-        rows, cols = off_y + wys, WS - 1 - off_x - wxs
-    else:
-        rows, cols = WS - 1 - off_y - wys, off_x + wxs
-    return wmat[np.ix_(rows, cols)].astype(np.int32)
+def _gpm_weights(ents, hs, vs):
+    """GPM weight blocks [B, h, w] int32 in 0..8 of finals entries of one
+    size (`mc_walk`'s rows: parameters weight plane, offsets x and y,
+    mirror), sliced from the partition weight planes as native
+    pred_gpm_blk reads them, chroma entries at the plane shifts hs/vs."""
+    w, h = int(ents[0, 4]), int(ents[0, 5])
+    plane, ox, oy, mirror = (ents[:, 10 + k, None] for k in range(4))
+    chroma = ents[:, 1, None] > 0
+    ys = np.arange(h)[None] << np.where(chroma, vs, 0)
+    xs = np.arange(w)[None] << np.where(chroma, hs, 0)
+    rows = np.where((mirror != 0) & (mirror != 1), 111 - oy - ys, oy + ys)
+    cols = np.where(mirror == 1, 111 - ox - xs, ox + xs)
+    return _gpm_weight_planes()[plane[:, :, None], rows[:, :, None],
+                                cols[:, None, :]].astype(np.int32)
 
 
 def _mc_w_avg_batch(s0, s1, denom, w0, w1, o0, o1, bd: int):
@@ -612,31 +572,37 @@ def mc_uni_batch(val, bd, device="cuda"):
 
 # ---- decoder-side batched dispatch (ops/itx.py cost-dispatch analogue) -----
 
-PF_L0, PF_L1, PF_BI = 1, 2, 3
-
-
 class _Planes:
     """Reference planes on the device for the length of one
-    frame_device_mc call: each goes up once, as 16-bit samples, whatever
-    the number of puts that read it; `wire` holds them in the order of
-    first use, which is the put table's plane index."""
+    frame_device_mc call.  `index` numbers a host plane at its first
+    sight (the put table's plane index); `load` uploads the planes of
+    given indices once each, as 16-bit samples, whatever the number of
+    puts that read them; `wire` holds the uploads by index (None where a
+    plane was never loaded)."""
 
     def __init__(self, dev):
         self.dev = dev
-        self.wire = []
-        self.at = {}          # id(host plane) -> index into wire
+        self.host, self.wire = [], []
+        self.at = {}          # id(host plane) -> index
         self.wide = {}        # index -> int32 copy (the DMVR prefetch)
 
     def index(self, plane):
         k = self.at.get(id(plane))
         if k is None:
-            k = self.at[id(plane)] = len(self.wire)
-            self.wire.append(upload(as_wire(plane), self.dev, stats))
+            k = self.at[id(plane)] = len(self.host)
+            self.host.append(plane)
+            self.wire.append(None)
         return k
+
+    def load(self, ks):
+        for k in ks:
+            if self.wire[k] is None:
+                self.wire[k] = upload(as_wire(self.host[k]), self.dev, stats)
 
     def __call__(self, plane):
         """The plane as int32 samples, for the DMVR prefetch's buckets."""
         k = self.index(plane)
+        self.load([k])
         if k not in self.wide:
             self.wide[k] = self.wire[k].to(I32)
         return self.wide[k]
@@ -660,41 +626,24 @@ class _Flat:
             self.flat[size] = vals[keys[0]] if len(keys) == 1 else \
                 torch.cat([vals[k] for k in keys])
 
-    @classmethod
-    def of_table(cls, buf, table, first):
-        """The outputs of a put table's buffer: each size's rows are a view
-        of `buf`; first[key] is ((w, h), index of the first block among its
-        size's) of bucket key (`put_table_of`)."""
-        self = cls({}, None)
-        self.base = {key: i for key, (_, i) in first.items()}
-        self.size = {key: size for key, (size, _) in first.items()}
-        for w, h, j0, n in table.runs:
-            at = int(table.jobs[j0, 7])
-            self.flat[(w, h)] = buf[at:at + n * w * h].view(n, h, w)
-        return self
-
-    def index(self, slots, dev):
-        """Slots of one size -> (that size's tensor, their positions)."""
-        size = self.size[slots[0][0]]
+    def take(self, slots, dev):
+        """The outputs of `slots`, all of one size: [len(slots), h, w]."""
         idx = upload(np.fromiter((self.base[k] + i for k, i in slots),
                                  np.int64, len(slots)), dev, stats)
-        return self.flat[size], idx
-
-    def take(self, slots, dev):
-        flat, idx = self.index(slots, dev)
-        return flat[idx]
+        return self.flat[self.size[slots[0][0]]][idx]
 
 
 def _dmvr_phase(D, rpls, bd, planes):
     """Phase A of DMVR descriptors: batched bilinear prefetch pairs +
-    25-point SAD refinement (ops/inter_device._dmvr_refine).
-    Returns {(di, sby, sbx): (mv0, mv1, skip_bdof)} with the refined,
-    +/-clipped subblock MVs (native dmvr_refine)."""
+    25-point SAD refinement (ops/inter_device._dmvr_refine).  Returns the
+    refined, +/-clipped MVs (native dmvr_refine) [S, 4] (mv0 x, y, mv1 x,
+    y) and the BDOF skips [S], int32, one row a subblock of the DMVR
+    descriptors in their order, each descriptor's in raster order."""
     dev = planes.dev
     dfilt = _dmvr_filters()
     buckets = {}        # (id(plane), pw, ph, mclass, wrap) -> lists
-    slots = {}          # (di, sby, sbx, hyp) -> (bkey, idx)
-    subs = []           # (di, sby, sbx, sbw, sbh, mvs)
+    slots = {}          # (subblock, hyp) -> (bkey, idx)
+    subs = []           # (sbw, sbh, mvs) of each subblock
     for di in np.nonzero((D[:, 13] & 64) != 0)[0]:
         di = int(di)
         x0, y0, w, h = (int(v) for v in D[di, :4])
@@ -710,7 +659,8 @@ def _dmvr_phase(D, rpls, bd, planes):
             for sbx in range(nsbx):
                 x = x0 + sbx * sbw
                 y = y0 + sby * sbh
-                subs.append((di, sby, sbx, sbw, sbh, mvs))
+                j = len(subs)
+                subs.append((sbw, sbh, mvs))
                 for i in range(2):
                     plane = rpl[i].frames[refs[i]].buffer.planes[0]
                     mvx, mvy = mvs[i]
@@ -722,7 +672,9 @@ def _dmvr_phase(D, rpls, bd, planes):
                         b = buckets[key] = {"plane": plane, "prm": []}
                     b["prm"].append((x + (mvx >> 4) - 2, y + (mvy >> 4) - 2,
                                      *dfilt[mx], *dfilt[my]))
-                    slots[(di, sby, sbx, i)] = (key, len(b["prm"]) - 1)
+                    slots[(j, i)] = (key, len(b["prm"]) - 1)
+    if not subs:
+        return np.zeros((0, 4), np.int32), np.zeros(0, np.int32)
     vals = {}
     for key, b in buckets.items():
         _pid, pw, ph, mclass, wrap = key
@@ -734,14 +686,12 @@ def _dmvr_phase(D, rpls, bd, planes):
         stats["launches"] += 1
     flat = _Flat(vals, lambda key: (key[1], key[2]))
     by_size = {}
-    for di, sby, sbx, sbw, sbh, mvs in subs:
-        by_size.setdefault((sbw, sbh), []).append((di, sby, sbx, mvs))
+    for j, (sbw, sbh, _) in enumerate(subs):
+        by_size.setdefault((sbw, sbh), []).append(j)
     refined = []
     for (sbw, sbh), items in by_size.items():
-        t0 = flat.take([slots[(di, sby, sbx, 0)]
-                        for di, sby, sbx, _ in items], dev)
-        t1 = flat.take([slots[(di, sby, sbx, 1)]
-                        for di, sby, sbx, _ in items], dev)
+        t0 = flat.take([slots[(j, 0)] for j in items], dev)
+        t1 = flat.take([slots[(j, 1)] for j in items], dev)
         dmv, skip = _dmvr_refine(t0, t1, sbw, sbh)
         stats["launches"] += 1
         stats["dmvr_subblocks"] += len(items)
@@ -750,198 +700,127 @@ def _dmvr_phase(D, rpls, bd, planes):
     with trace.span("mc.download"):
         refined = [(items, download(dmv, stats), download(skip, stats))
                    for items, dmv, skip in refined]
-    out = {}
+    mv = np.array([m for _, _, m in subs], np.int64).reshape(-1, 4)
+    dmv = np.zeros((len(subs), 2), np.int64)
+    skip = np.zeros(len(subs), np.int32)
+    for items, d, k in refined:
+        dmv[items], skip[items] = d, k
     lim = 1 << 17
-    for items, dmv, skip in refined:
-        for j, (di, sby, sbx, mvs) in enumerate(items):
-            dx, dy = int(dmv[j, 0]), int(dmv[j, 1])
-            if dx or dy:
-                mv0 = (min(max(mvs[0][0] + dx, -lim), lim - 1),
-                       min(max(mvs[0][1] + dy, -lim), lim - 1))
-                mv1 = (min(max(mvs[1][0] - dx, -lim), lim - 1),
-                       min(max(mvs[1][1] - dy, -lim), lim - 1))
-            else:
-                mv0, mv1 = mvs
-            out[(di, sby, sbx)] = (mv0, mv1, bool(skip[j]))
-    return out
+    moved = (dmv != 0).any(1, keepdims=True)
+    mv = np.where(moved, np.clip(mv + np.concatenate([dmv, -dmv], 1), -lim,
+                                 lim - 1), mv)
+    return mv.astype(np.int32), skip
 
 
-def _expand_dmvr_bdof(d, di, rpl, native_jobs, nc, hs, vs, add_put,
-                      entries, refined, pic_w, pic_h):
-    """Expand a DMVR/BDOF descriptor: per-subblock box-clamped puts with
-    the refined MVs (native luma_bi/chroma_bi has_box path), BDOF ring
-    gathers where the per-subblock gate holds, plain-average finals
-    (DMVR/BDOF imply no weights), and the refined-MV writeback to the
-    TMVP col grids (native set_dmvr_info)."""
-    (x0, y0, w, h, packed, r0_, r1_, mx0, my0, mx1, my1, hpel, tag,
-     flags2, wrap, _wm) = (int(v) for v in d[:16])
-    dmvr = bool(flags2 & 64)
-    bdof = bool(flags2 & 128)
-    nsbx, nsby = (packed >> 4) & 63, (packed >> 10) & 63
-    sbw, sbh = w // nsbx, h // nsby
-    refs = (r0_, r1_)
-    orig = ((mx0, my0), (mx1, my1))
-    lm = bool(flags2 & 1)
-    nr = native_jobs[tag][0]
-    tabs = nr.tabs
-    for sby in range(nsby):
-        for sbx in range(nsbx):
-            x = x0 + sbx * sbw
-            y = y0 + sby * sbh
-            if dmvr:
-                mv0, mv1, skip = refined[(di, sby, sbx)]
-                sb_bdof = bdof and not skip
-                # set_dmvr_info: refined MVs -> TMVP col grids
-                ya, xa = y >> 2, x >> 2
-                y1, x1 = (y + sbh) >> 2, (x + sbw) >> 2
-                tabs.col_pf[ya:y1, xa:x1] = 3            # PF_BI
-                for lx, mv in ((0, mv0), (1, mv1)):
-                    tabs.col_mv[lx, ya:y1, xa:x1] = mv
-                    tabs.col_ref[lx, ya:y1, xa:x1] = refs[lx]
-            else:
-                mv0, mv1, sb_bdof = orig[0], orig[1], bdof
-            mvs = (mv0, mv1)
-            slots = []
-            rings = []
-            for i in range(2):
-                ref = rpl[i].frames[refs[i]].buffer.planes[0]
-                mvx, mvy = mvs[i]
-                fx, fy = mvx & 15, mvy & 15
-                xi, yi = x + (mvx >> 4), y + (mvy >> 4)
-                box = _dmvr_box(x + (orig[i][0] >> 4),
-                                y + (orig[i][1] >> 4), sbw, sbh, True,
-                                pic_w, pic_h) if dmvr else None
-                slots.append(add_put(ref, xi, yi, fx, fy, sbw, sbh, True,
-                                     hpel, wrap, box))
-                if sb_bdof:
-                    rings.append(add_put(
-                        ref, xi + (fx >> 3) - 1, yi + (fy >> 3) - 1, 0, 0,
-                        sbw + 2, sbh + 2, True, 0, wrap, box))
-            wp = ("bdof", rings[0], rings[1]) if sb_bdof else None
-            entries.append((tag, 0, x, y, sbw, sbh, slots, wp, lm))
-            if nc == 1:
-                continue
-            for c in (1, 2):
-                cslots = []
-                for i in range(2):
-                    ref = rpl[i].frames[refs[i]].buffer.planes[c]
-                    mvx, mvy = mvs[i]
-                    cfx = (mvx & ((1 << (4 + hs)) - 1)) << (1 - hs)
-                    cfy = (mvy & ((1 << (4 + vs)) - 1)) << (1 - vs)
-                    xi = (x >> hs) + (mvx >> (4 + hs))
-                    yi = (y >> vs) + (mvy >> (4 + vs))
-                    box = _dmvr_box(
-                        (x >> hs) + (orig[i][0] >> (4 + hs)),
-                        (y >> vs) + (orig[i][1] >> (4 + vs)),
-                        sbw >> hs, sbh >> vs, False,
-                        pic_w >> hs, pic_h >> vs) if dmvr else None
-                    cslots.append(add_put(ref, xi, yi, cfx, cfy,
-                                          sbw >> hs, sbh >> vs, False, 0,
-                                          wrap >> hs, box))
-                entries.append((tag, c, x >> hs, y >> vs, sbw >> hs,
-                                sbh >> vs, cslots, None, False))
+# ---- the walk: every descriptor of a call into put rows and finals ----------
+
+# a finals entry's kind (native/vvc_inter.c WK_*)
+K_UNI, K_UNI_W, K_BI, K_BI_W, K_GPM, K_BDOF = range(6)
+WALK_ERRORS = {1: "an output array is too small",
+               2: "no such reference plane", 3: "a value out of range",
+               4: "out of memory",
+               5: "the DMVR subblocks do not match the refined MVs"}
 
 
-def _expand_subblocks(d, rpl, native_jobs, nc, hs, vs, add_put, entries,
-                      prof_jobs):
-    """Expand an affine / subblock-grid descriptor into per-subblock put
-    slots + finals entries, mirroring native pred_affine_blk /
-    pred_regular_blk's nsb walk: luma per subblock (affine: the type-2
-    filter and optional PROF refinement; grid: the stored hpel filter),
-    chroma per subblock (grid) or per 2x2-group with the spec's averaged
-    MV (affine)."""
-    (x0, y0, w, h, packed, r0_, r1_, _m7, _m8, _m9, _m10, hpel0, tag,
-     flags2, wrap, wmask) = (int(v) for v in d[:16])
-    affine = bool(flags2 & 4)
-    nsbx, nsby = (packed >> 4) & 63, (packed >> 10) & 63
-    sbw, sbh = w // nsbx, h // nsby
-    prof = ((flags2 >> 4) & 1, (flags2 >> 5) & 1)
-    nr = native_jobs[tag][0]
-    tabs = nr.tabs
-    lm = bool(flags2 & 1)
-    cu_pf = packed & 3
-    dm = {}
-    if affine:
-        cy0, cx0 = y0 >> 2, x0 >> 2
-        num_cp = int(tabs.mmi[cy0, cx0]) + 1
+class Walk(NamedTuple):
+    """What `mc_walk` makes of a call's descriptors: the put table, its
+    groups [G, 5] (w, h, flags, wrap, rows; table order), the finals
+    entries [E, 15] (tag, component, x, y, w, h, kind, LMCS flag, put row
+    of each hypothesis or -1, five parameters) and PROF's rows [P, 34]
+    (put row, ring row, dmx [16], dmy [16]): native/vvc_inter.c mc_walk."""
+    table: PutTable
+    groups: np.ndarray
+    entries: np.ndarray
+    prof: np.ndarray
+
+
+def mc_walk(D, native_jobs, lut, dims, nc, hs, vs, refined):
+    """One C walk (native/vvc_inter.c mc_walk, without the interpreter's
+    lock) over the descriptors D of `native_jobs` (tag = index): the put
+    rows, grouped and ordered as `PutTable` wants them, the finals
+    entries, PROF's rows, and DMVR's refined MVs written to the jobs'
+    collocated grids.  lut [tags, 2, 16, 3]: the plane index of each
+    reference plane (tag, list, ref index, component), -1 for none; dims
+    [P, 2]: each plane's (W, H); refined: `_dmvr_phase`'s arrays.
+    Raises ValueError if the walk fails."""
+    D = np.ascontiguousarray(D, np.int32)
+    nsb = np.maximum((D[:, 4] >> 4 & 63) * (D[:, 4] >> 10 & 63), 1)
+    nsb = int(nsb.sum())
+    cap = 8 * nsb                        # puts: 4 luma and 4 chroma a block
+    jobs = np.empty((cap, JOB_COLS), np.int32)
+    groups = np.empty((cap, 5), np.int32)
+    runs = np.empty((cap, 4), np.int32)
+    ents = np.empty((3 * nsb, 15), np.int32)
+    prof = np.empty((2 * nsb, 34), np.int32)
+    counts = np.zeros(5, np.int32)
+    ips = np.array([ctypes.addressof(nr.ip) for nr, _ in native_jobs],
+                   np.int64)
+    mmis = np.array([nr.tabs.mmi.ctypes.data for nr, _ in native_jobs],
+                    np.int64)
+    lut = np.ascontiguousarray(lut, np.int32)
+    dims = np.ascontiguousarray(dims, np.int32)
+    mv, skip = (np.ascontiguousarray(a, np.int32) for a in refined)
+    pic_h, pic_w = native_jobs[0][0].fb.planes[0].shape
+    if D.shape[1:] != (31,) or lut.shape != (len(native_jobs), 2, 16, 3) \
+            or dims.shape[1:] != (2,) or mv.shape != (len(skip), 4):
+        raise ValueError("mc_walk: descriptors, lut, dims or refined MVs "
+                         "of the wrong shape")
+    if any(m.dtype != np.int32 or not m.flags.c_contiguous
+           for m in (nr.tabs.mmi for nr, _ in native_jobs)):
+        raise ValueError("mc_walk: the mmi grids must be C-contiguous int32")
+    err = _native.load_lib().mc_walk(
+        len(D), D.ctypes.data, ips.ctypes.data, mmis.ctypes.data,
+        lut.ctypes.data, len(native_jobs), dims.ctypes.data, len(dims),
+        nc, hs, vs, pic_w, pic_h, mv.ctypes.data, skip.ctypes.data,
+        len(skip), jobs.ctypes.data, groups.ctypes.data, runs.ctypes.data,
+        cap, ents.ctypes.data, len(ents), prof.ctypes.data, len(prof),
+        counts.ctypes.data)
+    if err:
+        raise ValueError(f"mc_walk failed: {WALK_ERRORS.get(err, err)}")
+    n, ng, nr, ne, np_ = counts.tolist()
+    stats["walked"] += len(D)
+    table = PutTable(jobs[:n], [tuple(r) for r in runs[:nr].tolist()])
+    return Walk(table, groups[:ng], ents[:ne], prof[:np_])
+
+
+def _plane_lookup(rpls, nc, planes):
+    """The walk's lut: (tag, list, ref index, component) -> plane index
+    (`_Planes.index`, one index a host plane, so that a picture in both
+    lists is one plane), -1 for none; and each plane's (W, H)."""
+    lut = np.full((len(rpls), 2, 16, 3), -1, np.int32)
+    for tag, rpl in enumerate(rpls):
         for lx in range(2):
-            if prof[lx] and (cu_pf & (lx + 1)):
-                dm[lx] = _affine_diff_mvs(tabs.cp_mv[lx, cy0, cx0],
-                                          num_cp, w, h)
+            for i, f in enumerate(rpl[lx].frames[:16]):
+                for c in range(nc):
+                    lut[tag, lx, i, c] = planes.index(f.buffer.planes[c])
+    dims = np.array([p.shape[::-1] for p in planes.host], np.int32)
+    return lut, dims.reshape(-1, 2)
 
-    def wparams(c):
-        return tuple(int(v) for v in d[16 + 5 * c:21 + 5 * c]) \
-            if (wmask >> c) & 1 else None
 
-    def luma_put(lx, mv, ref_i, x, y, with_prof, hf):
-        ref = rpl[lx].frames[ref_i].buffer.planes[0]
-        mvx, mvy = int(mv[0]), int(mv[1])
-        fx, fy = mvx & 15, mvy & 15
-        xi, yi = x + (mvx >> 4), y + (mvy >> 4)
-        slot = add_put(ref, xi, yi, fx, fy, sbw, sbh, True, hf, wrap)
-        if with_prof:
-            # 6x6 integer-sample ring: an fclass-0 put (<< (14-bd))
-            ring = add_put(ref, xi + (fx >> 3) - 1, yi + (fy >> 3) - 1,
-                           0, 0, 6, 6, True, 0, wrap)
-            dx, dy = dm[lx]
-            prof_jobs.append((slot, ring, dx, dy))
-        return slot
+def _by_size(buf, table):
+    """Each block size's outputs in the put buffer: (w, h) -> (first row,
+    [rows, h, w] view)."""
+    views = {}
+    for w, h, j0, n in table.runs:
+        at = int(table.jobs[j0, 7])
+        views[(w, h)] = (j0, buf[at:at + n * w * h].view(n, h, w))
+    return views
 
-    def chroma_put(c, lx, mv, ref_i, xc, yc, wc, hc):
-        ref = rpl[lx].frames[ref_i].buffer.planes[c]
-        mvx, mvy = int(mv[0]), int(mv[1])
-        fx = (mvx & ((1 << (4 + hs)) - 1)) << (1 - hs)
-        fy = (mvy & ((1 << (4 + vs)) - 1)) << (1 - vs)
-        xi = xc + (mvx >> (4 + hs))
-        yi = yc + (mvy >> (4 + vs))
-        return add_put(ref, xi, yi, fx, fy, wc, hc, False, 0, wrap >> hs)
 
-    for sby in range(nsby):
-        for sbx in range(nsbx):
-            x = x0 + sbx * sbw
-            y = y0 + sby * sbh
-            cy, cx = y >> 2, x >> 2
-            spf = int(tabs.mvf_pf[cy, cx])
-            hyps = [lx for lx in (0, 1) if spf & (lx + 1)]
-            hf = 2 if affine else int(tabs.mvf_hpel[cy, cx])
-            if not hyps:
-                continue
-            slots = [
-                luma_put(lx, tabs.mvf_mv[lx, cy, cx],
-                         int(tabs.mvf_ref[lx, cy, cx]), x, y,
-                         affine and prof[lx], hf)
-                for lx in hyps]
-            entries.append((tag, 0, x, y, sbw, sbh, slots, wparams(0), lm))
-            if nc == 1:
-                continue
-            if affine:
-                # per 2x2 group (4:2:0): spec-averaged MV over the pair
-                if (sby & vs) or (sbx & hs):
-                    continue
-                cy2 = (y + vs * sbh) >> 2
-                cx2 = (x + hs * sbw) >> 2
-                for c in (1, 2):
-                    slots = []
-                    for lx in hyps:
-                        m = tabs.mvf_mv[lx, cy, cx].astype(np.int64) + \
-                            tabs.mvf_mv[lx, cy2, cx2]
-                        mvc = (m + 1 - (m >= 0)) >> 1
-                        slots.append(chroma_put(
-                            c, lx, mvc, int(tabs.mvf_ref[lx, cy, cx]),
-                            x >> hs, y >> vs,
-                            (sbw << hs) >> hs, (sbh << vs) >> vs))
-                    entries.append((tag, c, x >> hs, y >> vs,
-                                    (sbw << hs) >> hs, (sbh << vs) >> vs,
-                                    slots, wparams(c), False))
-            else:
-                for c in (1, 2):
-                    slots = [
-                        chroma_put(c, lx, tabs.mvf_mv[lx, cy, cx],
-                                   int(tabs.mvf_ref[lx, cy, cx]),
-                                   x >> hs, y >> vs, sbw >> hs, sbh >> vs)
-                        for lx in hyps]
-                    entries.append((tag, c, x >> hs, y >> vs, sbw >> hs,
-                                    sbh >> vs, slots, wparams(c), False))
+def _rows(views, rows, w, h, dev):
+    """Table rows `rows`, all of size (w, h) -> (that size's outputs, the
+    rows' positions among them)."""
+    j0, view = views[(w, h)]
+    idx = rows.astype(np.int64) - j0
+    if len(idx) and not (0 <= idx.min() and idx.max() < len(view)):
+        raise ValueError(f"put rows outside the {w}x{h} outputs")
+    return view, upload(idx, dev, stats)
+
+
+def _take(views, rows, w, h, dev):
+    """The put outputs of table rows `rows`, all of size (w, h)."""
+    view, idx = _rows(views, rows, w, h, dev)
+    return view[idx]
 
 
 def frame_device_mc(native_jobs, sps, bd, device="cuda", mesh=None):
@@ -976,190 +855,112 @@ def _frame_mc(native_jobs, sps, bd, dev, mesh):
     stats["descriptors"] += len(D)
     nc = 3 if sps.chroma_format_idc else 1
     hs, vs = (sps.hshift[1], sps.vshift[1]) if nc > 1 else (0, 0)
-
-    put_buckets = {}      # key -> dict(plane, prm rows, w, h, ...)
-    entries = []          # (tag, c, xc, yc, wc, hc, slots, wparams, lmcs)
-    prof_jobs = []        # (val_slot, ring_slot, dmx44, dmy44)
-    pic_h, pic_w = native_jobs[0][0].fb.planes[0].shape
+    bd = int(bd)
     planes = _Planes(dev)
     with trace.span("mc.dmvr"):
-        dmvr_refined = _dmvr_phase(D, rpls, bd, planes) \
-            if ((D[:, 13] & 64) != 0).any() else {}
-
-    def add_put(plane, xi, yi, fx, fy, w, h, is_luma, hf_idx, wrap,
-                box=None):
-        # bucket by actual frac class so fclass is uniform per launch
-        key = (id(plane), w, h, is_luma, hf_idx, bool(fx), bool(fy), wrap,
-               box is not None)
-        b = put_buckets.get(key)
-        if b is None:
-            b = put_buckets[key] = {"plane": plane, "prm": []}
-        b["prm"].append((xi, yi, fx, fy) if box is None
-                        else (xi, yi, fx, fy, *box))
-        return (key, len(b["prm"]) - 1)
-
+        refined = _dmvr_phase(D, rpls, bd, planes)
     with trace.span("mc.expand"):
-        for di in range(len(D)):
-            (x0, y0, w, h, pf, r0, r1, mx0, my0, mx1, my1, hpel, tag,
-             flags2, wrap, wmask) = (int(v) for v in D[di, :16])
-            rpl = rpls[tag]
-            if flags2 & 2:
-                # GPM: two uni hypotheses per plane + weight-plane blend
-                lx0, lx1, part = (int(v) for v in D[di, 16:19])
-                for c in range(nc):
-                    chs, cvs = (0, 0) if c == 0 else (hs, vs)
-                    wc, hc = w >> chs, h >> cvs
-                    slots = []
-                    for i, (lx, ref_i, mvx, mvy) in enumerate(
-                            ((lx0, r0, mx0, my0), (lx1, r1, mx1, my1))):
-                        ref = rpl[lx].frames[ref_i].buffer.planes[c]
-                        if c == 0:
-                            fx, fy = mvx & 15, mvy & 15
-                            xi = x0 + (mvx >> 4)
-                            yi = y0 + (mvy >> 4)
-                        else:
-                            fx = (mvx & ((1 << (4 + chs)) - 1)) << (1 - chs)
-                            fy = (mvy & ((1 << (4 + cvs)) - 1)) << (1 - cvs)
-                            xi = (x0 >> chs) + (mvx >> (4 + chs))
-                            yi = (y0 >> cvs) + (mvy >> (4 + cvs))
-                        slots.append(add_put(ref, xi, yi, fx, fy, wc, hc,
-                                             c == 0, 0, wrap >> chs))
-                    wgt = _gpm_weight_block(part, wc, hc, w, h, chs, cvs)
-                    entries.append((tag, c, x0 >> chs, y0 >> cvs, wc, hc,
-                                    slots, ("gpm", wgt),
-                                    (flags2 & 1) and c == 0))
-                continue
-            if flags2 & 12:
-                # affine (bit2) / subblock grid (bit3): expand per-subblock
-                # MVs from the frame's mvf/cp_mv tab grids
-                _expand_subblocks(
-                    D[di], rpl, native_jobs, nc, hs, vs, add_put, entries,
-                    prof_jobs)
-                continue
-            if flags2 & 192:
-                # DMVR (bit6) / BDOF (bit7): refined MVs from phase A,
-                # box-clamped puts + BDOF rings, col-grid writeback
-                _expand_dmvr_bdof(
-                    D[di], di, rpl, native_jobs, nc, hs, vs, add_put,
-                    entries, dmvr_refined, pic_w, pic_h)
-                continue
-            hyps = [0] if pf == PF_L0 else [1] if pf == PF_L1 else [0, 1]
-            for c in range(nc):
-                chs, cvs = (0, 0) if c == 0 else (hs, vs)
-                wc, hc = w >> chs, h >> cvs
-                slots = []
-                for lx in hyps:
-                    ref = rpl[lx].frames[[r0, r1][lx]].buffer.planes[c]
-                    mvx, mvy = (mx0, my0) if lx == 0 else (mx1, my1)
-                    if c == 0:
-                        fx, fy = mvx & 15, mvy & 15
-                        xi = x0 + (mvx >> 4)
-                        yi = y0 + (mvy >> 4)
-                        hf_idx = hpel
-                    else:
-                        fx = (mvx & ((1 << (4 + chs)) - 1)) << (1 - chs)
-                        fy = (mvy & ((1 << (4 + cvs)) - 1)) << (1 - cvs)
-                        xi = (x0 >> chs) + (mvx >> (4 + chs))
-                        yi = (y0 >> cvs) + (mvy >> (4 + cvs))
-                        hf_idx = 0
-                    slots.append(add_put(ref, xi, yi, fx, fy, wc, hc,
-                                         c == 0, hf_idx, wrap >> chs))
-                wparams = tuple(int(v) for v in D[di, 16 + 5 * c:21 + 5 * c]) \
-                    if (wmask >> c) & 1 else None
-                lm = (flags2 & 1) and c == 0
-                entries.append((tag, c, x0 >> chs, y0 >> cvs, wc, hc, slots,
-                                wparams, lm))
+        lut, dims = _plane_lookup(rpls, nc, planes)
+        walk = mc_walk(D, native_jobs, lut, dims, nc, hs, vs, refined)
 
     with trace.span("mc.put"):
         # one table of every put, one launch (per "tile" device on a mesh)
-        buckets = []
-        for key, b in put_buckets.items():
-            _pid, w, h, is_luma, hf_idx, has_fx, has_fy, wrap, boxed = key
-            fclass = (1 if has_fx else 0) | (2 if has_fy else 0)
-            k = planes.index(b["plane"])
-            buckets.append((k, planes.wire[k].shape, b["prm"], w, h, is_luma,
-                            hf_idx, hf_idx, fclass, wrap, boxed))
-            stats["put_buckets"] += 1
-            stats["put_blocks"] += len(b["prm"])
-            stats["put_class"][fclass] += 1
-        table, first = put_table_of(buckets)
-        flat = _Flat.of_table(_put_sharded(planes.wire, table, mesh, int(bd)),
-                              table, dict(zip(put_buckets, first)))
-
-        if prof_jobs:
+        table, groups = walk.table, walk.groups
+        planes.load(np.unique(groups[:, 2] & 0xFFFF).tolist())
+        stats["put_buckets"] += len(groups)
+        stats["put_blocks"] += len(table.jobs)
+        for c, n in enumerate(np.bincount(groups[:, 2] >> 17 & 3,
+                                          minlength=4).tolist()):
+            stats["put_class"][c] += n
+        views = _by_size(_put_sharded(planes.wire, table, mesh, bd), table)
+        P = walk.prof
+        if len(P):
             # batched PROF refinement overrides the affine put slots
-            puts, at = flat.index([s for s, _, _, _ in prof_jobs], dev)
+            puts, at = _rows(views, P[:, 0], 4, 4, dev)
+            dm = upload(P[:, 2:], dev, stats).view(-1, 2, 4, 4)
             puts[at] = _prof_apply_batch(
-                puts[at], flat.take([r for _, r, _, _ in prof_jobs], dev),
-                upload(np.stack([j[2] for j in prof_jobs]), dev, stats),
-                upload(np.stack([j[3] for j in prof_jobs]), dev, stats),
-                int(bd))
-            stats["prof_blocks"] += len(prof_jobs)
+                puts[at], _take(views, P[:, 1], 6, 6, dev), dm[:, 0],
+                dm[:, 1], bd)
+            stats["prof_blocks"] += len(P)
             stats["launches"] += 1
 
-    # finals: batch uni/bi/weighted combines per (size, kind); every
-    # bucket is queued before the first download waits
+    # finals: one batch per (size, kind); every batch is queued before the
+    # one download waits
     with trace.span("mc.finals"):
-        finals = {}   # (w, h, kind) -> (slots0, slots1, wparams, writebacks)
-        for tag, c, xc, yc, wc, hc, slots, wp, lm in entries:
-            dstplane = native_jobs[tag][0].fb.planes[c]
-            wb = (dstplane, xc, yc,
-                  getattr(native_jobs[tag][0], "lmcs_fwd_np", None)
-                  if lm else None)
-            if len(slots) == 1:
-                kind = "uni_w" if wp else "uni"
-            elif isinstance(wp, tuple) and wp[0] in ("gpm", "bdof"):
-                kind = wp[0]
-            else:
-                kind = "bi_w" if wp else "bi"
-            f = finals.setdefault((wc, hc, kind), ([], [], [], []))
-            f[0].append(slots[0])
-            if len(slots) > 1:
-                f[1].append(slots[1])
-            f[2].append(wp)
-            f[3].append(wb)
-
+        E = walk.entries
+        key = E[:, 4].astype(np.int64) << 24 | E[:, 5] << 8 | E[:, 6]
+        order = np.argsort(key, kind="stable")
+        E, key = E[order], key[order]
         outs = []
-        for (wc, hc, kind), (sl0, sl1, wps, wbs) in finals.items():
-            s0 = flat.take(sl0, dev)
-            s1 = flat.take(sl1, dev) if sl1 else None
-            if kind == "bi":
-                out = _mc_avg_batch(s0, s1, int(bd))
-            elif kind == "uni":
-                out = _mc_uni_batch(s0, int(bd))
-            elif kind == "gpm":
-                out = _mc_gpm_batch(
-                    s0, s1,
-                    upload(np.stack([wgt for _, wgt in wps]), dev, stats),
-                    int(bd))
-                stats["gpm_blocks"] += len(wps)
-            elif kind == "bdof":
-                out = _bdof_full_batch(
-                    s0, s1, flat.take([r0 for _, r0, _ in wps], dev),
-                    flat.take([r1 for _, _, r1 in wps], dev), wc, hc,
-                    int(bd))
-                stats["bdof_blocks"] += len(wps)
-            else:                      # weighted: (denom, w0, w1, o0, o1)
-                wa = upload(np.asarray(wps, np.int32), dev, stats)
-                stats["weighted_blocks"] += len(wps)
-                if kind == "bi_w":
-                    out = _mc_w_avg_batch(s0, s1,
-                                          *(wa[:, i] for i in range(5)),
-                                          int(bd))
-                else:
-                    out = _mc_uni_w_batch(s0, wa[:, 0], wa[:, 1], wa[:, 3],
-                                          int(bd))
+        for g in np.split(E, np.flatnonzero(np.diff(key)) + 1):
+            out = _finals(g, views, hs, vs, bd, dev)
             stats["finals_buckets"] += 1
             stats["launches"] += 1
-            outs.append(out.to(torch.int16))    # pixels: at most 12 bits
+            outs.append(out.to(torch.int16).reshape(-1))   # at most 12 bits
+        if not outs:
+            return
         with trace.span("mc.download"):
-            outs = [download(out, stats) for out in outs]
+            pix = download(torch.cat(outs), stats)
     with trace.span("mc.writeback"):
-        for ((wc, hc, _), (_, _, _, wbs)), out in zip(finals.items(), outs):
-            for i, (plane, xc, yc, lut) in enumerate(wbs):
-                blk = out[i]
-                if lut is not None:
-                    # LMCS forward mapping on the inter luma prediction
-                    # (predict_inter, vvc_inter.c:888-891)
-                    blk = lut[blk]
-                plane[yc:yc + hc, xc:xc + wc] = blk
+        _writeback(pix, E, native_jobs)
+
+
+def _finals(g, views, hs, vs, bd, dev):
+    """One batch of finals entries of one size and kind -> pixels [B, h, w]
+    int32 on the device."""
+    wc, hc, kind = (int(v) for v in g[0, 4:7])
+    s0 = _take(views, g[:, 8], wc, hc, dev)
+    s1 = _take(views, g[:, 9], wc, hc, dev) if kind >= K_BI else None
+    if kind == K_BI:
+        return _mc_avg_batch(s0, s1, bd)
+    if kind == K_UNI:
+        return _mc_uni_batch(s0, bd)
+    if kind == K_GPM:
+        stats["gpm_blocks"] += len(g)
+        return _mc_gpm_batch(s0, s1, upload(_gpm_weights(g, hs, vs), dev,
+                                            stats), bd)
+    if kind == K_BDOF:
+        stats["bdof_blocks"] += len(g)
+        return _bdof_full_batch(s0, s1,
+                                _take(views, g[:, 10], wc + 2, hc + 2, dev),
+                                _take(views, g[:, 11], wc + 2, hc + 2, dev),
+                                wc, hc, bd)
+    wa = upload(g[:, 10:15], dev, stats)     # (denom, w0, w1, o0, o1)
+    stats["weighted_blocks"] += len(g)
+    if kind == K_BI_W:
+        return _mc_w_avg_batch(s0, s1, *(wa[:, i] for i in range(5)), bd)
+    return _mc_uni_w_batch(s0, wa[:, 0], wa[:, 1], wa[:, 3], bd)
+
+
+def _writeback(pix, E, native_jobs):
+    """The finals' pixels (int16, entry after entry of E) into the jobs'
+    planes, luma through the LMCS forward mapping where an entry's flag is
+    set (predict_inter, vvc_inter.c:888-891): one C call
+    (native/vvc_inter.c mc_writeback)."""
+    n = len(native_jobs)
+    dst = np.zeros((n, 3), np.int64)
+    strides = np.zeros((n, 3), np.int32)
+    luts = np.zeros(n, np.int64)
+    keep = []
+    for tag, (nr, _) in enumerate(native_jobs):
+        for c, p in enumerate(nr.fb.planes):
+            if p.dtype != np.int32 or p.strides[1] != 4:
+                raise ValueError("mc writeback: int32 planes with unit "
+                                 "column stride expected")
+            dst[tag, c] = p.ctypes.data
+            strides[tag, c] = p.strides[0] // 4
+        lut = getattr(nr, "lmcs_fwd_np", None)
+        if lut is not None:
+            lut = np.ascontiguousarray(lut, np.int32)
+            keep.append(lut)
+            luts[tag] = lut.ctypes.data
+    pix = np.ascontiguousarray(pix, np.int16)
+    E = np.ascontiguousarray(E, np.int32)
+    if pix.size != int((E[:, 4].astype(np.int64) * E[:, 5]).sum()) or \
+            len(E) and not 0 <= E[:, 0].min() <= E[:, 0].max() < n:
+        raise ValueError("mc writeback: the pixels do not match the entries")
+    err = _native.load_lib().mc_writeback(
+        pix.ctypes.data, E.ctypes.data, len(E), dst.ctypes.data,
+        strides.ctypes.data, luts.ctypes.data)
+    if err:
+        raise ValueError(f"mc writeback: {WALK_ERRORS.get(err, err)}")

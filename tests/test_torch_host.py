@@ -38,9 +38,8 @@ from ffvvc_tpu_torch.tools import forge as pforge  # noqa: E402
 FFMPEG_PREFIX = "/".join(["", "root", "reference", ""])
 
 NATIVE_C = ["vvc_parse.c", "vvc_parse.h", "vvc_mvs.c", "vvc_cabac.c",
-            "vvc_cabac.h", "vvc_recon.c", "vvc_recon.h", "vvc_inter.c",
-            "vvc_intra.c", "vvc_intra.h", "vvc_mc.c", "vvc_sao.c",
-            "vvc_alf.c"]
+            "vvc_cabac.h", "vvc_recon.c", "vvc_recon.h", "vvc_intra.c",
+            "vvc_intra.h", "vvc_mc.c", "vvc_sao.c", "vvc_alf.c"]
 # copy (under ffvvc_tpu_torch/) -> original (under the repo root), equal
 # after normalisation
 SAME = {f: f"ffvvc_tpu/{f}" for f in (
@@ -57,7 +56,8 @@ SAME = {f: f"ffvvc_tpu/{f}" for f in (
 DIFFER = {
     # the loaders build through native/_build.py and raise on failure
     "native/parse.py": ("ffvvc_tpu/native/parse.py", 20),
-    "native/recon.py": ("ffvvc_tpu/native/recon.py", 20),
+    # ... and the bindings of device MC's walk and writeback (6 lines)
+    "native/recon.py": ("ffvvc_tpu/native/recon.py", 26),
     "native/intra.py": ("ffvvc_tpu/native/intra.py", 20),
     "native/mc.py": ("ffvvc_tpu/native/mc.py", 20),
     # ... and the segment emitter's binding (5 lines)
@@ -66,6 +66,10 @@ DIFFER = {
     # and the per-edge derivation and CTB walk it shares with the filters
     # (edge_params, walk_ctb_edges, frame_walk) (428 lines)
     "native/vvc_deblock.c": ("ffvvc_tpu/native/vvc_deblock.c", 428),
+    # device MC's walk of the descriptors into put rows, finals entries and
+    # PROF rows (mc_walk), and the copy of its pixels into the planes
+    # (mc_writeback) (605 lines)
+    "native/vvc_inter.c": ("ffvvc_tpu/native/vvc_inter.c", 605),
     "native/sao.py": ("ffvvc_tpu/native/sao.py", 16),
     "native/alf.py": ("ffvvc_tpu/native/alf.py", 16),
     "cabac/native.py": ("ffvvc_tpu/cabac/native.py", 22),

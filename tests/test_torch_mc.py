@@ -6,6 +6,11 @@ in `ffvvc_tpu_torch.ops` on device="cpu" (twins of tests/test_device_mc.py
 and tests/test_device_inter.py, plus PROF, GPM, the weighted finals, the
 bilinear prefetch, boxed and wrapped puts and the NumPy host half).
 
+Walk level: the C walk of a call's descriptors (`mc_device.mc_walk`)
+against `golden_walk`, the Python expand it replaced, call by call of a
+device_mc decode on nine streams: the same put rows, finals entries, PROF
+rows and collocated-grid writes.
+
 Decode level: `DecoderConfig(device="cpu", device_mc=True)` of the port
 against the bytes of ffvvc_tpu's host decode on every stream of
 tests/test_device_mc.py, one call per inter frame under row_progress with
@@ -15,7 +20,9 @@ gets bytes, never an object of the reference.
 
 Every comparison is integer equality (tolerance 0).
 """
+import collections
 import concurrent.futures
+import functools
 import time
 
 import numpy as np
@@ -247,24 +254,36 @@ def test_bit_length_is_exact():
 
 
 def test_host_half_equals_the_original():
-    """The NumPy functions the port keeps its own copy of."""
+    """The NumPy functions of the golden walk (below) equal the JAX
+    package's, and the GPM weight blocks the port slices from the walk's
+    entries equal the golden walk's."""
     rng = np.random.default_rng(23)
     for _ in range(40):
         cp = rng.integers(-2000, 2000, (3, 2))
         num_cp = int(rng.integers(2, 4))
         w, h = (int(1 << rng.integers(3, 8)) for _ in range(2))
-        for a, b in zip(mc_device._affine_diff_mvs(cp, num_cp, w, h),
+        for a, b in zip(_affine_diff_mvs(cp, num_cp, w, h),
                         jmc._affine_diff_mvs(cp, num_cp, w, h)):
             assert a.dtype == b.dtype and np.array_equal(a, b)
         args = (int(rng.integers(-20, 200)), int(rng.integers(-20, 120)),
                 16, 8, bool(rng.integers(0, 2)), 192, 96)
-        assert mc_device._dmvr_box(*args) == jmc._dmvr_box(*args)
+        assert _dmvr_box(*args) == jmc._dmvr_box(*args)
+    angle_idx, a2w, offx, offy, a2m, _ = _gpm_tables()
     for part in range(64):
         for wl, hl in ((8, 8), (16, 32), (64, 8)):
             for hs, vs in ((0, 0), (1, 1)):
                 args = (part, wl >> hs, hl >> vs, wl, hl, hs, vs)
-                assert np.array_equal(mc_device._gpm_weight_block(*args),
-                                      jmc._gpm_weight_block(*args))
+                want = _gpm_weight_block(*args)
+                assert np.array_equal(want, jmc._gpm_weight_block(*args))
+                wi, hi = wl.bit_length() - 4, hl.bit_length() - 4
+                ai = int(angle_idx[part])
+                entry = [0, int(hs > 0), 0, 0, wl >> hs, hl >> vs,
+                         mc_device.K_GPM, 0, 0, 0, int(a2w[ai]),
+                         int(offx[part][hi][wi]), int(offy[part][hi][wi]),
+                         int(a2m[ai]), 0]
+                got = mc_device._gpm_weights(np.array([entry] * 2), hs, vs)
+                assert got.dtype == np.int32
+                assert np.array_equal(got, np.stack([want] * 2))
     for a, b in zip(mc_device._filter_banks("cpu"), jmc._filter_banks()):
         same(a, b)
 
@@ -290,18 +309,17 @@ def test_put_table_equals_the_buckets(bd, seed):
     equals `_mc_put_math` bucket by bucket: the four classes, luma and
     chroma, 2x2 to 128x128, PROF and BDOF rings, wraparound, boxes reaching
     past the plane, blocks overhanging all four borders.  Read back through
-    the one-buffer `_Flat`, in shuffled bucket order."""
+    the buffer's views by size (`_by_size`), in shuffled bucket order."""
     rng = np.random.default_rng(seed)
     planes, buckets = put_inputs(rng, 72, 136, bd)
     order = rng.permutation(len(buckets))
     buckets = [buckets[i] for i in order]
     table, first = mc_device.put_table_of(buckets)
-    keys = list(range(len(buckets)))
     buf = mc_device.put_table([torch.from_numpy(p) for p in planes], table,
                               bd)
-    flat = mc_device._Flat.of_table(buf, table, dict(zip(keys, first)))
-    for i, b in zip(keys, buckets):
-        got = flat.take([(i, j) for j in range(len(b[2]))], "cpu")
+    views = mc_device._by_size(buf, table)
+    for b, ((w, h), at) in zip(buckets, first):
+        got = views[(w, h)][1][at:at + len(b[2])]
         assert torch.equal(got, _bucket_math(planes, b, bd)), b[3:]
 
 
@@ -353,28 +371,32 @@ def test_put_table_layout_covers_every_output_once():
 
 
 def test_one_buffer_flat_equals_the_concatenated_layout():
-    """The one-buffer `_Flat` (views of the put table's buffer) gives what
-    the per-bucket outputs concatenated by size give, through `take` and
-    `index`, for slots of every size in random order."""
+    """The put buffer's views by size (`_by_size`, which the finals read
+    through `_take`) give what the per-bucket outputs concatenated by size
+    (`_Flat`) give, for rows of every size in random order."""
     rng = np.random.default_rng(9)
     planes, buckets = put_inputs(rng, 64, 96, 10, blocks=3)
     table, first = mc_device.put_table_of(buckets)
-    keys = [(i, b[3], b[4]) for i, b in enumerate(buckets)]
-    one = mc_device._Flat.of_table(
+    views = mc_device._by_size(
         mc_device.put_table([torch.from_numpy(p) for p in planes], table, 10),
-        table, dict(zip(keys, first)))
+        table)
+    keys = [(i, b[3], b[4]) for i, b in enumerate(buckets)]
     cat = mc_device._Flat({key: _bucket_math(planes, b, 10)
                            for key, b in zip(keys, buckets)},
                           lambda key: (key[1], key[2]))
     sizes = {}
-    for key, b in zip(keys, buckets):
-        sizes.setdefault(key[1:], []).extend(
-            (key, j) for j in range(len(b[2])))
-    for slots in sizes.values():
+    for key, b, ((w, h), at) in zip(keys, buckets, first):
+        j0 = views[(w, h)][0]
+        sizes.setdefault((w, h), []).extend(
+            ((key, j), j0 + at + j) for j in range(len(b[2])))
+    for (w, h), slots in sizes.items():
         slots = [slots[i] for i in rng.permutation(len(slots))]
-        assert torch.equal(one.take(slots, "cpu"), cat.take(slots, "cpu"))
-        (a, ia), (b, ib) = one.index(slots, "cpu"), cat.index(slots, "cpu")
-        assert torch.equal(a[ia], b[ib])
+        rows = np.array([r for _, r in slots])
+        assert torch.equal(mc_device._take(views, rows, w, h, "cpu"),
+                           cat.take([s for s, _ in slots], "cpu"))
+    with pytest.raises(ValueError, match="outside"):
+        w, h = next(iter(sizes))
+        mc_device._take(views, np.array([len(table.jobs)]), w, h, "cpu")
 
 
 def test_put_table_refuses_other_devices():
@@ -403,6 +425,7 @@ def check_device_mc(s, **kw):
     mc_device.reset_stats()
     assert port_yuv(s, device_mc=True, **kw) == host_yuv(s)
     assert mc_device.stats["calls"] > 0 and mc_device.stats["put_buckets"] > 0
+    assert mc_device.stats["walked"] == mc_device.stats["descriptors"]
     return dict(mc_device.stats)
 
 
@@ -489,6 +512,513 @@ def test_decoder_device_mc_dmvr_bdof(name):
     stats = check_device_mc(forge_hier_stream(**HIER_STREAMS[name]))
     assert stats["dmvr_subblocks"] > 0 and stats["bdof_blocks"] > 0, stats
     assert stats["bilin_buckets"] > 0
+
+
+# ---- the walk: mc_walk against the Python expand it replaced --------------
+
+PF_L0, PF_L1 = 1, 2
+
+
+def _affine_diff_mvs(cp, num_cp, w, h):
+    """Per-4x4 PROF diff-MV grids from the stored control-point MVs —
+    the numpy twin of native affine_sb_params + affine_diff_mvs
+    (mvs.py _init_subblock_params / _derive_subblock_diff_mvs)."""
+    D = 7                                   # MAX_CU_DEPTH
+    lw, lh = w.bit_length() - 1, h.bit_length() - 1
+    cp = np.asarray(cp, np.int64)
+    d_hor_x = (cp[1, 0] - cp[0, 0]) << (D - lw)
+    d_ver_x = (cp[1, 1] - cp[0, 1]) << (D - lw)
+    if num_cp == 3:
+        d_hor_y = (cp[2, 0] - cp[0, 0]) << (D - lh)
+        d_ver_y = (cp[2, 1] - cp[0, 1]) << (D - lh)
+    else:
+        d_hor_y = -d_ver_x
+        d_ver_y = d_hor_x
+    lim = 1 << 5
+    xs = np.arange(4, dtype=np.int64)[None, :]
+    ys = np.arange(4, dtype=np.int64)[:, None]
+    d0 = xs * (d_hor_x << 2) + ys * (d_hor_y << 2) - \
+        6 * (d_hor_x + d_hor_y)
+    d1 = xs * (d_ver_x << 2) + ys * (d_ver_y << 2) - \
+        6 * (d_ver_x + d_ver_y)
+    d0 = (d0 + 128 - (d0 >= 0)) >> 8        # round_mv(d, 0, 8)
+    d1 = (d1 + 128 - (d1 >= 0)) >> 8
+    return (np.clip(d0, -lim + 1, lim - 1).astype(np.int32),
+            np.clip(d1, -lim + 1, lim - 1).astype(np.int32))
+
+
+
+def _dmvr_box(x_sb, y_sb, w, h, is_luma, pw, ph):
+    """Native dmvr_box: the inclusive prefetch-window clamp bounds."""
+    eb, ea = (3, 4) if is_luma else (1, 2)
+    sx = min(max(x_sb - eb, 0), pw - 1)
+    sy = min(max(y_sb - eb, 0), ph - 1)
+    wdt = max(min(pw, x_sb + w + ea) - sx, 1)
+    hgt = max(min(ph, y_sb + h + ea) - sy, 1)
+    return (sx, sx + wdt - 1, sy, sy + hgt - 1)
+
+
+
+@functools.lru_cache()
+def _gpm_tables():
+    from ffvvc_tpu_torch.ops import data as D
+    t = D.tables()
+    return (t["gpm_angle_idx"], t["gpm_angle_to_weights_idx"],
+            t["gpm_weights_offset_x"], t["gpm_weights_offset_y"],
+            t["gpm_angle_to_mirror"],
+            np.asarray(t["gpm_weights"]).reshape(-1, 112, 112))
+
+
+def _gpm_weight_block(part, w, h, wl, hl, hs, vs):
+    """Host slice of the GPM weight plane for one block: [h, w] int32
+    (wl/hl: LUMA block dims for the offset lookup; hs/vs: plane shifts)."""
+    angle_idx, a2w, offx, offy, a2m, wmats = _gpm_tables()
+    ai = int(angle_idx[part])
+    wmat = wmats[int(a2w[ai])]
+    wi = (wl.bit_length() - 1) - 3
+    hi = (hl.bit_length() - 1) - 3
+    off_x = int(offx[part][hi][wi])
+    off_y = int(offy[part][hi][wi])
+    mirror = int(a2m[ai])
+    WS = 112
+    wys = np.arange(h) << vs
+    wxs = np.arange(w) << hs
+    if mirror == 0:
+        rows, cols = off_y + wys, off_x + wxs
+    elif mirror == 1:
+        rows, cols = off_y + wys, WS - 1 - off_x - wxs
+    else:
+        rows, cols = WS - 1 - off_y - wys, off_x + wxs
+    return wmat[np.ix_(rows, cols)].astype(np.int32)
+
+
+def _expand_dmvr_bdof(d, di, rpl, native_jobs, nc, hs, vs, add_put,
+                      entries, refined, pic_w, pic_h):
+    """Expand a DMVR/BDOF descriptor: per-subblock box-clamped puts with
+    the refined MVs (native luma_bi/chroma_bi has_box path), BDOF ring
+    gathers where the per-subblock gate holds, plain-average finals
+    (DMVR/BDOF imply no weights), and the refined-MV writeback to the
+    TMVP col grids (native set_dmvr_info)."""
+    (x0, y0, w, h, packed, r0_, r1_, mx0, my0, mx1, my1, hpel, tag,
+     flags2, wrap, _wm) = (int(v) for v in d[:16])
+    dmvr = bool(flags2 & 64)
+    bdof = bool(flags2 & 128)
+    nsbx, nsby = (packed >> 4) & 63, (packed >> 10) & 63
+    sbw, sbh = w // nsbx, h // nsby
+    refs = (r0_, r1_)
+    orig = ((mx0, my0), (mx1, my1))
+    lm = bool(flags2 & 1)
+    nr = native_jobs[tag][0]
+    tabs = nr.tabs
+    for sby in range(nsby):
+        for sbx in range(nsbx):
+            x = x0 + sbx * sbw
+            y = y0 + sby * sbh
+            if dmvr:
+                mv0, mv1, skip = refined[(di, sby, sbx)]
+                sb_bdof = bdof and not skip
+                # set_dmvr_info: refined MVs -> TMVP col grids
+                ya, xa = y >> 2, x >> 2
+                y1, x1 = (y + sbh) >> 2, (x + sbw) >> 2
+                tabs.col_pf[ya:y1, xa:x1] = 3            # PF_BI
+                for lx, mv in ((0, mv0), (1, mv1)):
+                    tabs.col_mv[lx, ya:y1, xa:x1] = mv
+                    tabs.col_ref[lx, ya:y1, xa:x1] = refs[lx]
+            else:
+                mv0, mv1, sb_bdof = orig[0], orig[1], bdof
+            mvs = (mv0, mv1)
+            slots = []
+            rings = []
+            for i in range(2):
+                ref = rpl[i].frames[refs[i]].buffer.planes[0]
+                mvx, mvy = mvs[i]
+                fx, fy = mvx & 15, mvy & 15
+                xi, yi = x + (mvx >> 4), y + (mvy >> 4)
+                box = _dmvr_box(x + (orig[i][0] >> 4),
+                                y + (orig[i][1] >> 4), sbw, sbh, True,
+                                pic_w, pic_h) if dmvr else None
+                slots.append(add_put(ref, xi, yi, fx, fy, sbw, sbh, True,
+                                     hpel, wrap, box))
+                if sb_bdof:
+                    rings.append(add_put(
+                        ref, xi + (fx >> 3) - 1, yi + (fy >> 3) - 1, 0, 0,
+                        sbw + 2, sbh + 2, True, 0, wrap, box))
+            wp = ("bdof", rings[0], rings[1]) if sb_bdof else None
+            entries.append((tag, 0, x, y, sbw, sbh, slots, wp, lm))
+            if nc == 1:
+                continue
+            for c in (1, 2):
+                cslots = []
+                for i in range(2):
+                    ref = rpl[i].frames[refs[i]].buffer.planes[c]
+                    mvx, mvy = mvs[i]
+                    cfx = (mvx & ((1 << (4 + hs)) - 1)) << (1 - hs)
+                    cfy = (mvy & ((1 << (4 + vs)) - 1)) << (1 - vs)
+                    xi = (x >> hs) + (mvx >> (4 + hs))
+                    yi = (y >> vs) + (mvy >> (4 + vs))
+                    box = _dmvr_box(
+                        (x >> hs) + (orig[i][0] >> (4 + hs)),
+                        (y >> vs) + (orig[i][1] >> (4 + vs)),
+                        sbw >> hs, sbh >> vs, False,
+                        pic_w >> hs, pic_h >> vs) if dmvr else None
+                    cslots.append(add_put(ref, xi, yi, cfx, cfy,
+                                          sbw >> hs, sbh >> vs, False, 0,
+                                          wrap >> hs, box))
+                entries.append((tag, c, x >> hs, y >> vs, sbw >> hs,
+                                sbh >> vs, cslots, None, False))
+
+
+def _expand_subblocks(d, rpl, native_jobs, nc, hs, vs, add_put, entries,
+                      prof_jobs):
+    """Expand an affine / subblock-grid descriptor into per-subblock put
+    slots + finals entries, mirroring native pred_affine_blk /
+    pred_regular_blk's nsb walk: luma per subblock (affine: the type-2
+    filter and optional PROF refinement; grid: the stored hpel filter),
+    chroma per subblock (grid) or per 2x2-group with the spec's averaged
+    MV (affine)."""
+    (x0, y0, w, h, packed, r0_, r1_, _m7, _m8, _m9, _m10, hpel0, tag,
+     flags2, wrap, wmask) = (int(v) for v in d[:16])
+    affine = bool(flags2 & 4)
+    nsbx, nsby = (packed >> 4) & 63, (packed >> 10) & 63
+    sbw, sbh = w // nsbx, h // nsby
+    prof = ((flags2 >> 4) & 1, (flags2 >> 5) & 1)
+    nr = native_jobs[tag][0]
+    tabs = nr.tabs
+    lm = bool(flags2 & 1)
+    cu_pf = packed & 3
+    dm = {}
+    if affine:
+        cy0, cx0 = y0 >> 2, x0 >> 2
+        num_cp = int(tabs.mmi[cy0, cx0]) + 1
+        for lx in range(2):
+            if prof[lx] and (cu_pf & (lx + 1)):
+                dm[lx] = _affine_diff_mvs(tabs.cp_mv[lx, cy0, cx0],
+                                          num_cp, w, h)
+
+    def wparams(c):
+        return tuple(int(v) for v in d[16 + 5 * c:21 + 5 * c]) \
+            if (wmask >> c) & 1 else None
+
+    def luma_put(lx, mv, ref_i, x, y, with_prof, hf):
+        ref = rpl[lx].frames[ref_i].buffer.planes[0]
+        mvx, mvy = int(mv[0]), int(mv[1])
+        fx, fy = mvx & 15, mvy & 15
+        xi, yi = x + (mvx >> 4), y + (mvy >> 4)
+        slot = add_put(ref, xi, yi, fx, fy, sbw, sbh, True, hf, wrap)
+        if with_prof:
+            # 6x6 integer-sample ring: an fclass-0 put (<< (14-bd))
+            ring = add_put(ref, xi + (fx >> 3) - 1, yi + (fy >> 3) - 1,
+                           0, 0, 6, 6, True, 0, wrap)
+            dx, dy = dm[lx]
+            prof_jobs.append((slot, ring, dx, dy))
+        return slot
+
+    def chroma_put(c, lx, mv, ref_i, xc, yc, wc, hc):
+        ref = rpl[lx].frames[ref_i].buffer.planes[c]
+        mvx, mvy = int(mv[0]), int(mv[1])
+        fx = (mvx & ((1 << (4 + hs)) - 1)) << (1 - hs)
+        fy = (mvy & ((1 << (4 + vs)) - 1)) << (1 - vs)
+        xi = xc + (mvx >> (4 + hs))
+        yi = yc + (mvy >> (4 + vs))
+        return add_put(ref, xi, yi, fx, fy, wc, hc, False, 0, wrap >> hs)
+
+    for sby in range(nsby):
+        for sbx in range(nsbx):
+            x = x0 + sbx * sbw
+            y = y0 + sby * sbh
+            cy, cx = y >> 2, x >> 2
+            spf = int(tabs.mvf_pf[cy, cx])
+            hyps = [lx for lx in (0, 1) if spf & (lx + 1)]
+            hf = 2 if affine else int(tabs.mvf_hpel[cy, cx])
+            if not hyps:
+                continue
+            slots = [
+                luma_put(lx, tabs.mvf_mv[lx, cy, cx],
+                         int(tabs.mvf_ref[lx, cy, cx]), x, y,
+                         affine and prof[lx], hf)
+                for lx in hyps]
+            entries.append((tag, 0, x, y, sbw, sbh, slots, wparams(0), lm))
+            if nc == 1:
+                continue
+            if affine:
+                # per 2x2 group (4:2:0): spec-averaged MV over the pair
+                if (sby & vs) or (sbx & hs):
+                    continue
+                cy2 = (y + vs * sbh) >> 2
+                cx2 = (x + hs * sbw) >> 2
+                for c in (1, 2):
+                    slots = []
+                    for lx in hyps:
+                        m = tabs.mvf_mv[lx, cy, cx].astype(np.int64) + \
+                            tabs.mvf_mv[lx, cy2, cx2]
+                        mvc = (m + 1 - (m >= 0)) >> 1
+                        slots.append(chroma_put(
+                            c, lx, mvc, int(tabs.mvf_ref[lx, cy, cx]),
+                            x >> hs, y >> vs,
+                            (sbw << hs) >> hs, (sbh << vs) >> vs))
+                    entries.append((tag, c, x >> hs, y >> vs,
+                                    (sbw << hs) >> hs, (sbh << vs) >> vs,
+                                    slots, wparams(c), False))
+            else:
+                for c in (1, 2):
+                    slots = [
+                        chroma_put(c, lx, tabs.mvf_mv[lx, cy, cx],
+                                   int(tabs.mvf_ref[lx, cy, cx]),
+                                   x >> hs, y >> vs, sbw >> hs, sbh >> vs)
+                        for lx in hyps]
+                    entries.append((tag, c, x >> hs, y >> vs, sbw >> hs,
+                                    sbh >> vs, slots, wparams(c), False))
+
+
+
+def golden_walk(D, rpls, native_jobs, nc, hs, vs, dmvr_refined, pic_w,
+                pic_h):
+    """The expand of frame_device_mc before mc_walk, unchanged: returns
+    its put buckets ({key: {"plane", "prm"}}), finals entries and PROF
+    jobs."""
+    put_buckets = {}      # key -> dict(plane, prm rows, w, h, ...)
+    entries = []          # (tag, c, xc, yc, wc, hc, slots, wparams, lmcs)
+    prof_jobs = []        # (val_slot, ring_slot, dmx44, dmy44)
+
+    def add_put(plane, xi, yi, fx, fy, w, h, is_luma, hf_idx, wrap,
+                box=None):
+        # bucket by actual frac class so fclass is uniform per launch
+        key = (id(plane), w, h, is_luma, hf_idx, bool(fx), bool(fy), wrap,
+               box is not None)
+        b = put_buckets.get(key)
+        if b is None:
+            b = put_buckets[key] = {"plane": plane, "prm": []}
+        b["prm"].append((xi, yi, fx, fy) if box is None
+                        else (xi, yi, fx, fy, *box))
+        return (key, len(b["prm"]) - 1)
+
+    for di in range(len(D)):
+        (x0, y0, w, h, pf, r0, r1, mx0, my0, mx1, my1, hpel, tag,
+         flags2, wrap, wmask) = (int(v) for v in D[di, :16])
+        rpl = rpls[tag]
+        if flags2 & 2:
+            # GPM: two uni hypotheses per plane + weight-plane blend
+            lx0, lx1, part = (int(v) for v in D[di, 16:19])
+            for c in range(nc):
+                chs, cvs = (0, 0) if c == 0 else (hs, vs)
+                wc, hc = w >> chs, h >> cvs
+                slots = []
+                for i, (lx, ref_i, mvx, mvy) in enumerate(
+                        ((lx0, r0, mx0, my0), (lx1, r1, mx1, my1))):
+                    ref = rpl[lx].frames[ref_i].buffer.planes[c]
+                    if c == 0:
+                        fx, fy = mvx & 15, mvy & 15
+                        xi = x0 + (mvx >> 4)
+                        yi = y0 + (mvy >> 4)
+                    else:
+                        fx = (mvx & ((1 << (4 + chs)) - 1)) << (1 - chs)
+                        fy = (mvy & ((1 << (4 + cvs)) - 1)) << (1 - cvs)
+                        xi = (x0 >> chs) + (mvx >> (4 + chs))
+                        yi = (y0 >> cvs) + (mvy >> (4 + cvs))
+                    slots.append(add_put(ref, xi, yi, fx, fy, wc, hc,
+                                         c == 0, 0, wrap >> chs))
+                wgt = _gpm_weight_block(part, wc, hc, w, h, chs, cvs)
+                entries.append((tag, c, x0 >> chs, y0 >> cvs, wc, hc,
+                                slots, ("gpm", wgt),
+                                (flags2 & 1) and c == 0))
+            continue
+        if flags2 & 12:
+            # affine (bit2) / subblock grid (bit3): expand per-subblock
+            # MVs from the frame's mvf/cp_mv tab grids
+            _expand_subblocks(
+                D[di], rpl, native_jobs, nc, hs, vs, add_put, entries,
+                prof_jobs)
+            continue
+        if flags2 & 192:
+            # DMVR (bit6) / BDOF (bit7): refined MVs from phase A,
+            # box-clamped puts + BDOF rings, col-grid writeback
+            _expand_dmvr_bdof(
+                D[di], di, rpl, native_jobs, nc, hs, vs, add_put,
+                entries, dmvr_refined, pic_w, pic_h)
+            continue
+        hyps = [0] if pf == PF_L0 else [1] if pf == PF_L1 else [0, 1]
+        for c in range(nc):
+            chs, cvs = (0, 0) if c == 0 else (hs, vs)
+            wc, hc = w >> chs, h >> cvs
+            slots = []
+            for lx in hyps:
+                ref = rpl[lx].frames[[r0, r1][lx]].buffer.planes[c]
+                mvx, mvy = (mx0, my0) if lx == 0 else (mx1, my1)
+                if c == 0:
+                    fx, fy = mvx & 15, mvy & 15
+                    xi = x0 + (mvx >> 4)
+                    yi = y0 + (mvy >> 4)
+                    hf_idx = hpel
+                else:
+                    fx = (mvx & ((1 << (4 + chs)) - 1)) << (1 - chs)
+                    fy = (mvy & ((1 << (4 + cvs)) - 1)) << (1 - cvs)
+                    xi = (x0 >> chs) + (mvx >> (4 + chs))
+                    yi = (y0 >> cvs) + (mvy >> (4 + cvs))
+                    hf_idx = 0
+                slots.append(add_put(ref, xi, yi, fx, fy, wc, hc,
+                                     c == 0, hf_idx, wrap >> chs))
+            wparams = tuple(int(v) for v in D[di, 16 + 5 * c:21 + 5 * c]) \
+                if (wmask >> c) & 1 else None
+            lm = (flags2 & 1) and c == 0
+            entries.append((tag, c, x0 >> chs, y0 >> cvs, wc, hc, slots,
+                            wparams, lm))
+
+    return put_buckets, entries, prof_jobs
+
+
+def _refined_dict(D, refined):
+    """`_dmvr_phase`'s arrays as the golden walk reads them: {(descriptor,
+    sby, sbx): (mv0, mv1, skip)}."""
+    mv, skip = refined
+    out, j = {}, 0
+    for di in np.nonzero(D[:, 13] & 64)[0]:
+        nsbx, nsby = D[di, 4] >> 4 & 63, D[di, 4] >> 10 & 63
+        for sby in range(nsby):
+            for sbx in range(nsbx):
+                m = mv[j].tolist()
+                out[(int(di), sby, sbx)] = ((m[0], m[1]), (m[2], m[3]),
+                                            bool(skip[j]))
+                j += 1
+    assert j == len(skip)
+    return out
+
+
+def _col_grids(native_jobs):
+    return [[a.copy() for a in (nr.tabs.col_pf, nr.tabs.col_mv,
+                                nr.tabs.col_ref)] for nr, _ in native_jobs]
+
+
+def _table_rows(table):
+    """Each row of a put table as a tuple: its first 7 columns (all but
+    the output offset) and its block size."""
+    size = np.repeat(np.array([r[:2] for r in table.runs]).reshape(-1, 2),
+                     [r[3] for r in table.runs], axis=0)
+    return [tuple(r) for r in
+            np.concatenate([table.jobs[:, :7], size], 1).tolist()]
+
+
+def _golden_table(buckets, native_jobs, lut, dims):
+    """The golden walk's buckets through `put_table_of`, each plane under
+    the walk's index for it: the table and each slot's row."""
+    index = {}
+    for tag, (nr, _) in enumerate(native_jobs):
+        for lx in range(2):
+            for i, f in enumerate(nr.rpl[lx].frames[:16]):
+                for c, plane in enumerate(f.buffer.planes):
+                    if lut[tag, lx, i, c] >= 0:
+                        index[id(plane)] = int(lut[tag, lx, i, c])
+    rows = []
+    for key, b in buckets.items():
+        _pid, w, h, luma, hf, has_fx, has_fy, wrap, boxed = key
+        k = index[id(b["plane"])]
+        rows.append((k, tuple(dims[k][::-1]), b["prm"], w, h, luma, hf, hf,
+                     int(has_fx) | int(has_fy) << 1, wrap, boxed))
+    table, first = mc_device.put_table_of(rows)
+    start = {(w, h): j0 for w, h, j0, _ in table.runs}
+    first = dict(zip(buckets, first))
+
+    def row(slot):
+        key, i = slot
+        size, at = first[key]
+        return start[size] + at + i
+    return table, row
+
+
+def check_walk(walk, golden, native_jobs, lut, dims, hs, vs):
+    """The walk's table holds the golden walk's put rows (as a multiset;
+    its groups are the golden buckets), each finals entry resolves to the
+    same rows with the same kind, LMCS flag and parameters, and PROF has
+    the same rows and offsets."""
+    buckets, entries, prof_jobs = golden
+    gtable, grow = _golden_table(buckets, native_jobs, lut, dims)
+    want_rows, rows = _table_rows(gtable), _table_rows(walk.table)
+    assert collections.Counter(rows) == collections.Counter(want_rows)
+    assert len(walk.groups) == len(buckets)
+    assert walk.groups[:, 4].sum() == len(rows)
+    K = mc_device
+    want = {}
+    for tag, c, x, y, w, h, slots, wp, lm in entries:
+        tagged = isinstance(wp, tuple) and isinstance(wp[0], str)
+        if len(slots) == 1:
+            kind, extra = (K.K_UNI_W, wp) if wp else (K.K_UNI, None)
+        elif tagged and wp[0] == "gpm":
+            kind, extra = K.K_GPM, wp[1].tolist()
+        elif tagged and wp[0] == "bdof":
+            kind = K.K_BDOF
+            extra = (want_rows[grow(wp[1])], want_rows[grow(wp[2])])
+        else:
+            kind, extra = (K.K_BI_W, wp) if wp else (K.K_BI, None)
+        want[(tag, c, x, y)] = (w, h, kind, bool(lm),
+                                tuple(want_rows[grow(s)] for s in slots),
+                                extra)
+    got = {}
+    for e in walk.entries.tolist():
+        tag, c, x, y, w, h, kind, lm = e[:8]
+        extra = None
+        if kind in (K.K_UNI_W, K.K_BI_W):
+            extra = tuple(e[10:15])
+        elif kind == K.K_GPM:
+            extra = K._gpm_weights(np.array([e]), hs, vs)[0].tolist()
+        elif kind == K.K_BDOF:
+            extra = (rows[e[10]], rows[e[11]])
+        got[(tag, c, x, y)] = (w, h, kind, bool(lm),
+                               tuple(rows[r] for r in e[8:10] if r >= 0),
+                               extra)
+    assert len(got) == len(walk.entries) and len(want) == len(entries)
+    assert got == want
+    assert collections.Counter(
+        (rows[p[0]], rows[p[1]], tuple(p[2:18]), tuple(p[18:34]))
+        for p in walk.prof.tolist()) == collections.Counter(
+        (want_rows[grow(s)], want_rows[grow(r)], tuple(dx.ravel().tolist()),
+         tuple(dy.ravel().tolist())) for s, r, dx, dy in prof_jobs)
+
+
+# what each stream's walks must have made, by kind of entry or table row
+WALK_STREAMS = {
+    "mixed": lambda w: len(w.prof) > 0,
+    "affine_prof": lambda w: len(w.prof) > 0,
+    "sbtmvp": lambda w: len(w.entries) > 0,
+    "affine_weighted": lambda w: (w.entries[:, 6] == mc_device.K_BI_W).any(),
+    "gpm_4": lambda w: (w.entries[:, 6] == mc_device.K_GPM).any(),
+    "weighted_bi": lambda w: (w.entries[:, 6] == mc_device.K_BI_W).any(),
+    "wraparound": lambda w: (w.table.jobs[:, 4] > 0).any(),
+    "dmvr_bdof": lambda w: (w.entries[:, 6] == mc_device.K_BDOF).any() and
+    (w.table.jobs[:, 3] >> 23 & 1).any(),
+    "lmcs": lambda w: w.entries[:, 7].any(),
+}
+
+
+@pytest.mark.parametrize("name", list(WALK_STREAMS))
+def test_walk_equals_the_golden_walk(name, monkeypatch):
+    """mc_walk (C) against the Python expand it replaced, call by call of
+    a device_mc decode: the same put rows, finals entries, PROF rows and
+    offsets, and the same writes to the collocated grids (each walk runs
+    from the grids as they were)."""
+    real = mc_device.mc_walk
+    seen = []
+
+    def spy(D, native_jobs, lut, dims, nc, hs, vs, refined):
+        before = _col_grids(native_jobs)
+        pic_h, pic_w = native_jobs[0][0].fb.planes[0].shape
+        golden = golden_walk(D, [nr.rpl for nr, _ in native_jobs],
+                             native_jobs, nc, hs, vs,
+                             _refined_dict(D, refined), pic_w, pic_h)
+        want = _col_grids(native_jobs)
+        for (nr, _), grids in zip(native_jobs, before):
+            for a, b in zip((nr.tabs.col_pf, nr.tabs.col_mv,
+                             nr.tabs.col_ref), grids):
+                a[...] = b
+        walk = real(D, native_jobs, lut, dims, nc, hs, vs, refined)
+        for got, grids in zip(_col_grids(native_jobs), want):
+            assert all(np.array_equal(a, b) for a, b in zip(got, grids))
+        check_walk(walk, golden, native_jobs, lut, dims, hs, vs)
+        seen.append(WALK_STREAMS[name](walk))
+        return walk
+    monkeypatch.setattr(mc_device, "mc_walk", spy)
+    s = forge_inter_stream(deblock=True, **INTER_STREAMS[name]) \
+        if name in INTER_STREAMS else forge_hier_stream(**HIER_STREAMS[name])
+    check_device_mc(s, pipeline_frames=False)
+    assert seen and any(seen), seen
 
 
 class _LatePixels(concurrent.futures.ThreadPoolExecutor):
@@ -624,21 +1154,22 @@ def test_planes_go_up_once_per_call():
 def test_put_buckets_count_the_table_groups(name, monkeypatch):
     """stats["put_buckets"] counts the distinct put groups (plane, size,
     class, filter, wrap, box) as the per-bucket path did: each call's one
-    table holds exactly its buckets' groups and blocks.  On the CPU no
-    kernel launches."""
+    table, as the walk builds it, holds exactly its groups and blocks.  On
+    the CPU no kernel launches."""
     seen = []
-    real = mc_device.put_table_of
+    real = mc_device.mc_walk
 
-    def spy(buckets):
-        table, first = real(buckets)
+    def spy(*args):
+        walk = real(*args)
+        table = walk.table
         size = np.repeat(np.array([r[:2] for r in table.runs]),
                          [r[3] for r in table.runs], axis=0)
         groups = np.unique(np.concatenate([size, table.jobs[:, 3:5]], 1),
                            axis=0)
-        seen.append((len(buckets), len(groups), len(table.jobs),
-                     sum(len(b[2]) for b in buckets)))
-        return table, first
-    monkeypatch.setattr(mc_device, "put_table_of", spy)
+        seen.append((len(walk.groups), len(groups), len(table.jobs),
+                     int(walk.groups[:, 4].sum())))
+        return walk
+    monkeypatch.setattr(mc_device, "mc_walk", spy)
     s = forge_inter_stream(deblock=True, **INTER_STREAMS[name]) \
         if name in INTER_STREAMS else forge_hier_stream(**HIER_STREAMS[name])
     launches = mc_device.put_table.launches
